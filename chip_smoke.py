@@ -6,12 +6,17 @@
 Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA kernels from `elf_tpu_torch/csrc/` with nvcc;
-  3. kernels: each kernel against its plain PyTorch version on the card
-     (19x19 and 9x9, B in {1, 5, 32, 130, 4096}, random boards, the
-     serpentine chain, actions with passes, negatives and occupied
-     points; then 19x19 mid-game boards at B = 32 and 4096), exact
-     integers; times of kernel and plain version with CUDA events on the
-     mid-game boards;
+  3. kernels: both designs of each kernel (the union-find kernels the
+     engine launches and the first port's round-based ones, kept as the
+     yardstick) against the plain PyTorch version on the card (19x19 and
+     9x9, B in {1, 5, 32, 130, 4096}, random boards, the serpentine chain,
+     actions with passes, negatives and occupied points), exact; then at
+     the timed 19x19 shapes (mid-game boards at B = 32, 1024 and 4096,
+     serpentine chains at B = 1024) checked again and timed in turns
+     (rounds, union-find, union-find, rounds): device time per launch by
+     CUDA-graph replay, the profiler's kernel time beside it, the host
+     cost of one wrapper call, the plain version's time and the byte
+     bound;
   4. slice: the 19x19 20-block 256-channel net with the committed weights
      (runs/prove19/export-best.bin) drives SelfplayActor (B = 32, 64
      rollouts, 8 per batch, Dirichlet noise) for 6 moves, with the launch
@@ -33,6 +38,7 @@ A copy of the numbers goes to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -95,6 +101,8 @@ def test_boards(B: int, size: int, rng) -> np.ndarray:
 
 
 def cuda_time_ms(fn, reps: int) -> float:
+    """Mean time of `fn` between CUDA events around `reps` calls, host
+    syncs included (used for the plain versions, which sync on the host)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -106,6 +114,70 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int, replays: int = 5) -> float:
+    """Device time of one launch of `fn`: `reps` launches captured into a
+    CUDA graph, the graph replayed between two events; the median of
+    `replays` replays, over `reps`.  The host enqueues one replay, so its
+    cost per launch stays out of the number."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(replays):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
+def host_ms(fn, calls: int) -> float:
+    """Host cost of one wrapper call: a host clock over `calls` calls with
+    no synchronisation inside (fewer calls than the launch queue holds)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
+def profiler_ms(fn, symbol: str, calls: int):
+    """Mean device time of the kernel `symbol` under torch.profiler over
+    `calls` launches of `fn` (None when the trace holds no such kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    name = re.compile(rf"\b{symbol}[<(]")       # plain or templated kernel
+    for e in prof.key_averages():
+        if name.search(e.key):
+            total_us += getattr(e, "device_time_total", None) or \
+                e.cuda_time_total
+            count += e.count
+    return total_us / count / 1e3 if count else None
 
 
 def played_boards(B: int, size: int, plies: int, seed: int):
@@ -125,78 +197,135 @@ def played_boards(B: int, size: int, plies: int, seed: int):
     return core
 
 
+def designs():
+    """Both designs' wrappers and CUDA symbols: the union-find kernels the
+    engine launches, and the first port's round-based kernels, kept as the
+    yardstick they are timed against."""
+    from elf_tpu_torch.env.go import kernels
+
+    return {
+        "union-find": {
+            "analyze_libs": (kernels.analyze_libs_cuda, "analyze_libs_kernel"),
+            "step_analysis": (kernels.step_analysis_cuda,
+                              "step_analysis_kernel"),
+        },
+        "rounds": {
+            "analyze_libs": (kernels.analyze_libs_rounds_cuda,
+                             "analyze_libs_rounds_kernel"),
+            "step_analysis": (kernels.step_analysis_rounds_cuda,
+                              "step_analysis_rounds_kernel"),
+        },
+    }
+
+
+def bytes_moved(name: str, B: int, n2: int) -> int:
+    """Each input read once, each output written once."""
+    if name == "analyze_libs":
+        return B * n2 + 2 * B * n2 * 4
+    return B * (n2 + 8) + B * n2 * (1 + 4 + 4 + 1)
+
+
+# The timed shapes, all 19x19: (boards, B).
+TIMED = (("mid-game", SLICE_B), ("mid-game", 1024), ("mid-game", 4096),
+         ("serpentine", 1024))
+
+
 def kernel_phase(rng) -> dict:
     from elf_tpu_torch.env.go import kernels
 
     dev = torch.device("cuda")
     worst = {"analyze_libs": 0, "step_analysis": 0}
+    both = designs()
+    plain_of = {"analyze_libs": kernels.analyze_libs_ref,
+                "step_analysis": kernels.step_analysis_ref}
+
+    def check(name, args, where):
+        """Every design of `name` equal to the plain version on `args`."""
+        plain = plain_of[name](*args)
+        for design, calls in both.items():
+            got = calls[name][0](*args)
+            torch.cuda.synchronize()
+            for g_, r_ in zip(got, plain):
+                if g_.dtype != r_.dtype or not torch.equal(g_, r_):
+                    fail(f"{name} ({design}) differs from the plain version "
+                         f"{where}")
+                worst[name] = max(worst[name],
+                                  int((g_.int() - r_.int()).abs().max()))
+
     for size in (9, 19):
         n2 = size * size
         for B in (1, 5, SLICE_B, 130, 4096):
             s = torch.from_numpy(test_boards(B, size, rng)).to(dev)
             if B == 1:
                 s[0] = torch.from_numpy(snake(size)).to(dev)
-            got = kernels.analyze_libs_cuda(s)
-            ref = kernels.analyze_libs_ref(s)
-            torch.cuda.synchronize()
-            for g_, r_ in zip(got, ref):
-                if not torch.equal(g_, r_):
-                    fail(f"analyze_libs differs at size {size} B {B}")
-                worst["analyze_libs"] = max(
-                    worst["analyze_libs"], int((g_ - r_).abs().max()))
-            flat = s.reshape(B, n2).contiguous()
+            check("analyze_libs", (s,), f"at size {size} B {B}")
             act = torch.from_numpy(
                 rng.integers(-3, n2 + 3, size=B).astype(np.int32)).to(dev)
             col = torch.from_numpy(
                 rng.integers(1, 3, size=B).astype(np.int32)).to(dev)
-            got = kernels.step_analysis_cuda(flat, act, col)
-            ref = kernels.step_analysis_ref(flat, act, col)
-            torch.cuda.synchronize()
-            for name, g_, r_ in zip(("s2", "lib_min", "lib_max", "captured"),
-                                    got, ref):
-                if g_.dtype != r_.dtype or not torch.equal(g_, r_):
-                    fail(f"step_analysis {name} differs at size {size} B {B}")
-                worst["step_analysis"] = max(
-                    worst["step_analysis"],
-                    int((g_.int() - r_.int()).abs().max()))
-            log(f"kernels: size {size} B {B}: both kernels equal to their "
-                "plain versions")
+            check("step_analysis", (s.reshape(B, n2).contiguous(), act, col),
+                  f"at size {size} B {B}")
+            log(f"kernels: size {size} B {B}: both designs of both kernels "
+                "equal to their plain versions")
 
-    # 19x19 mid-game boards, at the slice's batch and at 4096: checked
-    # against the plain versions, then timed
+    # the timed shapes: checked against the plain versions, then timed in
+    # turns (rounds, union-find, union-find, rounds) on this one card
     size, n2 = 19, 361
     timings = {}
-    for B in (SLICE_B, 4096):
-        core = played_boards(B, size, 120, seed=B)
-        s2d = core.stones.reshape(B, size, size).contiguous()
-        color = core.to_play.to(torch.int32)
+    for boards, B in TIMED:
+        if boards == "mid-game":
+            core = played_boards(B, size, 120, seed=B)
+            flat = core.stones
+            color = core.to_play.to(torch.int32)
+        else:
+            flat = torch.from_numpy(np.stack([
+                snake(size).reshape(n2) * (1 + i % 2) for i in range(B)
+            ]).astype(np.int8)).to(dev)
+            color = torch.from_numpy(
+                rng.integers(1, 3, size=B).astype(np.int32)).to(dev)
+        s2d = flat.reshape(B, size, size).contiguous()
         act = torch.from_numpy(
             rng.integers(0, n2 + 1, size=B).astype(np.int32)).to(dev)
-        calls = {
-            "analyze_libs": (lambda: kernels.analyze_libs_cuda(s2d),
-                             lambda: kernels.analyze_libs_ref(s2d),
-                             B * n2 + 2 * B * n2 * 4),
-            "step_analysis": (
-                lambda: kernels.step_analysis_cuda(core.stones, act, color),
-                lambda: kernels.step_analysis_ref(core.stones, act, color),
-                B * (n2 + 8) + B * n2 * (1 + 4 + 4 + 1)),
-        }
-        reps = 200 if B == SLICE_B else 50
-        for name, (kern, plain, nbytes) in calls.items():
-            for g_, r_ in zip(kern(), plain()):
-                if g_.dtype != r_.dtype or not torch.equal(g_, r_):
-                    fail(f"{name} differs on mid-game 19x19 boards at B {B}")
-            # the byte term bounds the time: a chain's min and max need
-            # O(1) integer operations per point, far below it
-            timings[(name, B)] = dict(
-                ms=cuda_time_ms(kern, reps), plain_ms=cuda_time_ms(plain, 5),
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
-            t = timings[(name, B)]
-            log(f"kernels: {name} 19x19 mid-game B {B}: equal to the plain "
-                f"version; kernel {t['ms']:.4f} ms, plain "
-                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
-                "(bytes)")
-    return {"worst": worst, "timings": timings}
+        args = {"analyze_libs": (s2d,), "step_analysis": (flat, act, color)}
+        where = f"on {boards} 19x19 boards at B {B}"
+        reps = 200 if B <= 1024 else 100
+        for name in ("step_analysis", "analyze_libs"):
+            a = args[name]
+            check(name, a, where)
+            ms = {"rounds": [], "union-find": []}
+            for design in ("rounds", "union-find", "union-find", "rounds"):
+                fn = both[design][name][0]
+                ms[design].append(graph_ms(lambda: fn(*a), reps))
+            plain = plain_of[name]
+            nbytes = bytes_moved(name, B, n2)
+            t = dict(boards=boards, B=B, bytes=nbytes,
+                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                     plain_ms=cuda_time_ms(lambda: plain(*a), 3))
+            for design, (fn, symbol) in ((d, both[d][name]) for d in both):
+                t[design] = dict(
+                    ms=float(np.mean(ms[design])), ms_turns=ms[design],
+                    profiler_ms=profiler_ms(lambda: fn(*a), symbol, 50),
+                    host_ms=host_ms(lambda: fn(*a), 200))
+            timings[(name, boards, B)] = t
+            for design in ("union-find", "rounds"):
+                d = t[design]
+                prof = ("not found" if d["profiler_ms"] is None
+                        else f"{d['profiler_ms']:.6f} ms")
+                log(f"kernels: {name} 19x19 {boards} B {B}, {design}: device "
+                    f"{d['ms']:.6f} ms/launch (graph replay; turns "
+                    f"{', '.join(f'{x:.6f}' for x in d['ms_turns'])}), "
+                    f"profiler {prof}, host cost {d['host_ms']:.6f} ms/call, "
+                    f"bound {t['bound_ms']:.6f} ms (bytes), plain "
+                    f"{t['plain_ms']:.4f} ms")
+    ratios = {}
+    for name in ("step_analysis", "analyze_libs"):
+        for design in ("union-find", "rounds"):
+            r = (timings[(name, "serpentine", 1024)][design]["ms"]
+                 / timings[(name, "mid-game", 1024)][design]["ms"])
+            ratios[f"{name}/{design}"] = r
+            log(f"kernels: {name}, {design}: serpentine / mid-game device "
+                f"time at B 1024 = {r:.3f}")
+    return {"worst": worst, "timings": timings, "serpentine_ratio": ratios}
 
 
 # ---------------------------------------------------------------------------
@@ -424,8 +553,9 @@ def main() -> int:
     t0 = time.perf_counter()
     path, text = _build.build("go_libs")
     log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in text.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+    for line in text.splitlines():      # registers, smem, spills per kernel
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "smem")):
             log(f"build: {line.strip()}")
 
     result = {"card": card, "kind": kind}
@@ -439,24 +569,27 @@ def main() -> int:
         "analyze_libs": "elf_tpu/env/go/pallas_kernels.py:254",
         "step_analysis": "elf_tpu/env/go/pallas_kernels.py:202",
     }
+    k = result["kernels"]
     for name in ("step_analysis", "analyze_libs"):
-        k = result["kernels"]
-        t = k["timings"][(name, SLICE_B)]
-        t4 = k["timings"][(name, 4096)]
+        t = k["timings"][(name, "mid-game", SLICE_B)]
         rows.append({
             "name": name, "route": "cuda",
             "source": "elf_tpu_torch/csrc/go_libs.cu",
             "replaces": replaces[name],
             "launches": result["slice"]["launches"][name],
-            "max_abs_err": k["worst"][name], "ms": t["ms"],
+            "max_abs_err": k["worst"][name], "ms": t["union-find"]["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
-            "shape": f"19x19 B={SLICE_B}", "ms_b4096": t4["ms"],
-            "plain_ms_b4096": t4["plain_ms"], "bound_ms_b4096": t4["bound_ms"],
+            "shape": f"19x19 mid-game B={SLICE_B}",
+            "host_ms": t["union-find"]["host_ms"],
+            "by_shape": {
+                f"{boards} B={B}": {
+                    "ms": v["union-find"]["ms"], "rounds_ms": v["rounds"]["ms"],
+                    "bound_ms": v["bound_ms"]}
+                for (n, boards, B), v in k["timings"].items() if n == name},
         })
-    result["kernels"]["timings"] = {
-        f"{n}@B{b}": v for (n, b), v in result["kernels"]["timings"].items()
-    }
+    k["timings"] = {f"{n} {boards} B={B}": v
+                    for (n, boards, B), v in k["timings"].items()}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     result["kernel_rows"] = rows

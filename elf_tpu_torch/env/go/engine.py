@@ -23,6 +23,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from elf_tpu_torch.device import DeviceLike, resolve_device
 from elf_tpu_torch.env.go import kernels
 from elf_tpu_torch.env.go.kernels import INF, shift
 from elf_tpu_torch.env.go.zobrist import zobrist_tables
@@ -55,7 +56,10 @@ class StepInfo(NamedTuple):
     #                           (undefined on illegal rows)
 
 
-def init_core(batch: int, size: int, device="cpu") -> GoCore:
+def init_core(batch: int, size: int, device: DeviceLike = "cuda") -> GoCore:
+    """Empty boards, black to play, on `device` (the card unless the caller
+    asks for the CPU)."""
+    device = resolve_device(device)
     n2 = size * size
     i32 = dict(dtype=torch.int32, device=device)
     i8 = dict(dtype=torch.int8, device=device)

@@ -4,7 +4,8 @@ Counterpart of `elf_tpu/env/go/pallas_kernels.py`.  Each kernel has
 
  - a wrapper (`analyze_libs_cuda`, `step_analysis_cuda`) that checks its
    inputs, allocates the outputs and launches the CUDA kernel of
-   `csrc/go_libs.cu` on the current stream, counting the launch;
+   `csrc/go_libs.cu` (union-find labelling in shared memory) on the
+   current stream, counting the launch;
  - a plain PyTorch version (`analyze_libs_ref`, `step_analysis_ref`): the
    CPU path and the oracle the kernel is held against on the card;
  - a dispatcher (`analyze_libs`, `step_analysis`) that takes the kernel for
@@ -144,10 +145,12 @@ def _kernels():
 
         lib = _build.load("go_libs")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.go_analyze_libs.argtypes = [vp, vp, vp, ci, ci, vp]
-        lib.go_analyze_libs.restype = ci
-        lib.go_step_analysis.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
-        lib.go_step_analysis.restype = ci
+        for fn in (lib.go_analyze_libs, lib.go_analyze_libs_rounds):
+            fn.argtypes = [vp, vp, vp, ci, ci, vp]
+            fn.restype = ci
+        for fn in (lib.go_step_analysis, lib.go_step_analysis_rounds):
+            fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
+            fn.restype = ci
         _lib = lib
     return _lib
 
@@ -176,9 +179,9 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
-def analyze_libs_cuda(stones2d: torch.Tensor):
-    """CUDA liberty fixpoint: int8 [B, N, N] -> (lib_min, lib_max) int32."""
-    global analyze_libs_launches
+def _launch_analyze_libs(fn_name: str, stones2d: torch.Tensor):
+    """Checks, allocates and launches `fn_name` of the library (nothing to
+    launch for an empty batch); returns (lib_min, lib_max)."""
     B, n, _ = stones2d.shape
     _check(stones2d, "stones2d", torch.int8, (B, n, n))
     _board_size(n * n)
@@ -187,19 +190,17 @@ def analyze_libs_cuda(stones2d: torch.Tensor):
     if B == 0:
         return lm, lx
     stream = torch.cuda.current_stream(stones2d.device).cuda_stream
-    rc = _kernels().go_analyze_libs(
+    rc = getattr(_kernels(), fn_name)(
         stones2d.data_ptr(), lm.data_ptr(), lx.data_ptr(), B, n, stream
     )
-    _raise_on(rc, "go_analyze_libs")
-    analyze_libs_launches += 1
+    _raise_on(rc, fn_name)
     return lm, lx
 
 
-def step_analysis_cuda(stones: torch.Tensor, action: torch.Tensor,
-                       color: torch.Tensor):
-    """CUDA fused step analysis: (s2 int8 [B, N*N], lib_min int32 [B, N, N],
-    lib_max int32 [B, N, N], captured bool [B, N*N])."""
-    global step_analysis_launches
+def _launch_step_analysis(fn_name: str, stones: torch.Tensor,
+                          action: torch.Tensor, color: torch.Tensor):
+    """Checks, allocates and launches `fn_name` of the library (nothing to
+    launch for an empty batch); returns (s2, lib_min, lib_max, captured)."""
     B, n2 = stones.shape
     size = _board_size(n2)
     _check(stones, "stones", torch.int8, (B, n2))
@@ -215,14 +216,52 @@ def step_analysis_cuda(stones: torch.Tensor, action: torch.Tensor,
     if B == 0:
         return s2, lm, lx, cap
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _kernels().go_step_analysis(
+    rc = getattr(_kernels(), fn_name)(
         stones.data_ptr(), action.data_ptr(), color.data_ptr(),
         s2.data_ptr(), lm.data_ptr(), lx.data_ptr(), cap.data_ptr(),
         B, size, stream,
     )
-    _raise_on(rc, "go_step_analysis")
-    step_analysis_launches += 1
+    _raise_on(rc, fn_name)
     return s2, lm, lx, cap
+
+
+def analyze_libs_cuda(stones2d: torch.Tensor):
+    """CUDA liberty analysis (union-find in shared memory): int8 [B, N, N]
+    -> (lib_min, lib_max) int32."""
+    global analyze_libs_launches
+    out = _launch_analyze_libs("go_analyze_libs", stones2d)
+    analyze_libs_launches += int(stones2d.shape[0] > 0)  # launched
+    return out
+
+
+def step_analysis_cuda(stones: torch.Tensor, action: torch.Tensor,
+                       color: torch.Tensor):
+    """CUDA fused step analysis (union-find in shared memory): (s2 int8
+    [B, N*N], lib_min int32 [B, N, N], lib_max int32 [B, N, N], captured
+    bool [B, N*N])."""
+    global step_analysis_launches
+    out = _launch_step_analysis("go_step_analysis", stones, action, color)
+    step_analysis_launches += int(stones.shape[0] > 0)  # launched
+    return out
+
+
+# The first port's round-based kernels, kept as the yardstick the
+# union-find kernels are timed against (`chip_smoke.py`); the engine never
+# calls them, and they are not counted.
+
+
+def analyze_libs_rounds_cuda(stones2d: torch.Tensor):
+    """Round-based CUDA liberty fixpoint; same contract as
+    `analyze_libs_cuda`."""
+    return _launch_analyze_libs("go_analyze_libs_rounds", stones2d)
+
+
+def step_analysis_rounds_cuda(stones: torch.Tensor, action: torch.Tensor,
+                              color: torch.Tensor):
+    """Round-based CUDA fused step analysis; same contract as
+    `step_analysis_cuda`."""
+    return _launch_step_analysis("go_step_analysis_rounds", stones, action,
+                                 color)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from elf_tpu_torch.device import DeviceLike, resolve_device
 from elf_tpu_torch.env.go import engine
 from elf_tpu_torch.env.go.engine import BLACK, WHITE, GoCore, StepInfo
 
@@ -35,7 +36,10 @@ class GoState(NamedTuple):
         return math.isqrt(self.core.stones.shape[-1])
 
 
-def init_state(batch: int, size: int, device="cpu") -> GoState:
+def init_state(batch: int, size: int, device: DeviceLike = "cuda") -> GoState:
+    """Fresh states on `device` (the card unless the caller asks for the
+    CPU)."""
+    device = resolve_device(device)
     n2 = size * size
     max_h = 2 * n2 + 1
     i32 = dict(dtype=torch.int32, device=device)

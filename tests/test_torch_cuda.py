@@ -57,6 +57,82 @@ def test_kernels_match_plain_versions(dev, size):
             assert torch.equal(a, b)
 
 
+def _snake(size):
+    """One serpentine chain covering the board (the longest chains)."""
+    b = np.zeros((size, size), np.int8)
+    b[0::2, :] = 1
+    for r in range(1, size, 2):
+        b[r, -1 if (r // 2) % 2 == 0 else 0] = 1
+    return b
+
+
+def _edge_boards(kind, B, size, seed):
+    """B boards of one kind, with actions and colours to play that include
+    the liberty of a one-liberty chain, occupied points, passes and
+    negative actions."""
+    rng = np.random.default_rng(seed)
+    n = size
+    s = np.zeros((B, n, n), np.int8)
+    for i in range(B):
+        if kind == "one_liberty":                # one chain, one liberty
+            s[i] = 1 + i % 2
+            s[i].flat[rng.integers(n * n)] = 0
+        elif kind == "checkerboard":             # single-stone chains
+            r, c = np.indices((n, n))
+            s[i] = np.where((r + c) % 2 == 0, 1 + r % 2, 0)
+        elif kind == "full":                     # no empty point
+            s[i] = rng.integers(1, 3, (n, n))
+        elif kind == "serpentine":               # in both colours
+            s[i] = _snake(n) * (1 + i % 2)
+        elif kind == "random":
+            p_empty = (0.2, 0.5, 0.8)[i % 3]
+            s[i] = rng.choice(3, (n, n), p=[p_empty, (1 - p_empty) / 2,
+                                            (1 - p_empty) / 2])
+    flat = s.reshape(B, n * n)
+    action = np.empty(B, np.int32)
+    color = np.empty(B, np.int32)
+    for i in range(B):
+        empty, occ = np.nonzero(flat[i] == 0)[0], np.nonzero(flat[i])[0]
+        pick = i % 5
+        if pick in (0, 1) and empty.size:
+            action[i] = empty[rng.integers(empty.size)]
+        elif pick == 2 and occ.size:
+            action[i] = occ[rng.integers(occ.size)]
+        else:
+            action[i] = (n * n, -1, n * n + 3)[i % 3]
+        # the opponent of the board's first stone, so that one-liberty
+        # boards lose their whole chain
+        color[i] = 3 - flat[i, occ[0]] if occ.size else 1 + i % 2
+    return s, action, color
+
+
+@pytest.mark.parametrize("B", [1, 32, 1024])
+@pytest.mark.parametrize("size", [2, 5, 9, 13, 19, 32])
+def test_both_designs_match_plain_versions_on_edge_boards(dev, size, B):
+    """The union-find kernels and the round-based ones, exactly equal to the
+    plain versions on the boards that stress a labelling: one chain with
+    one liberty, single-stone chains, empty and full boards, serpentine
+    chains and random boards."""
+    n2 = size * size
+    libs = (kernels.analyze_libs_cuda, kernels.analyze_libs_rounds_cuda)
+    steps = (kernels.step_analysis_cuda, kernels.step_analysis_rounds_cuda)
+    for k, kind in enumerate(("one_liberty", "checkerboard", "empty", "full",
+                              "serpentine", "random")):
+        s_np, a_np, c_np = _edge_boards(kind, B, size, seed=size * 100 + k)
+        s = torch.from_numpy(s_np).to(dev)
+        flat = s.reshape(B, n2)
+        act, col = torch.from_numpy(a_np).to(dev), torch.from_numpy(c_np).to(dev)
+        ref = kernels.analyze_libs_ref(s)
+        ref_step = kernels.step_analysis_ref(flat, act, col)
+        for fn in libs:
+            for got, want in zip(fn(s), ref):
+                assert torch.equal(got, want), (fn.__name__, kind)
+        for fn in steps:
+            for got, want in zip(fn(flat, act, col), ref_step):
+                assert got.dtype == want.dtype and torch.equal(got, want), \
+                    (fn.__name__, kind)
+
+
 def test_step_core_on_card_matches_cpu(dev):
     """Random legal games: the engine on the card (kernels) and on the CPU
     (plain versions) agree on every field."""

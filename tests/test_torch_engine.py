@@ -118,7 +118,7 @@ def test_state_step_handicap_and_evaluate():
     n2 = size * size
     rng = np.random.default_rng(9)
     js = jstate.apply_handicap(jstate.init_state(B, size), 3, size)
-    ts = tstate.apply_handicap(tstate.init_state(B, size), 3, size)
+    ts = tstate.apply_handicap(tstate.init_state(B, size, "cpu"), 3, size)
     for ply in range(70):
         legal = np.array(jstate.legal_moves(js, size))
         np.testing.assert_array_equal(
@@ -171,7 +171,7 @@ def test_d4_transforms_match_jax(size):
 def test_reset_where_matches_jax():
     size, B = 9, 4
     js = jstate.init_state(B, size)
-    ts = tstate.init_state(B, size)
+    ts = tstate.init_state(B, size, "cpu")
     a = np.array([10, 20, 30, 81], np.int32)
     js, _ = jstate.step(js, jnp.asarray(a), size)
     ts, _ = tstate.step(ts, torch.from_numpy(a), size)
@@ -187,3 +187,17 @@ def test_reset_where_matches_jax():
             b = b.view(np.uint32)
         np.testing.assert_array_equal(np.asarray(getattr(js, name)), b,
                                       err_msg=name)
+
+
+@pytest.mark.parametrize("entry", [tengine.init_core, tstate.init_state],
+                         ids=["init_core", "init_state"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """Without a device the engine's entry points ask for the card: with no
+    CUDA they raise and name the CPU option; "cpu" gives CPU tensors."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry(2, 9)
+    out = entry(2, 9, "cpu")
+    tensors = list(out.core) + list(out[1:]) if hasattr(out, "core") \
+        else list(out)
+    assert all(t.device.type == "cpu" for t in tensors)
