@@ -26,7 +26,21 @@ Phases:
   5. records: 9x9 games with a seeded small net until move_cutoff = 20;
      every Record survives a JSON round trip and replays on the host to
      the boards the actor played;
-  6. profile: one more slice move under torch.profiler, device time by
+  6. train: the learner at full width (19x19, 20 blocks, 256 channels, bf16
+     compute, fp32 master weights), all on the card.  Self-play with the
+     committed weights (B = 32, 16 rollouts, move_cutoff = 8, launch
+     counts set to 0 just before; both kernels must have launched) emits
+     32 Records; each goes through `TrainingPipeline.insert_record` (the C
+     replayer, held against its plain version) into a ReplayBuffer; a
+     Trainer at batch 256 loads the same file through `load_checkpoint`
+     (bf16 export onto fp32 masters, fresh optimizer);
+     `LearnerRunner.run_minibatch` steps, timed by CUDA events around the
+     step with the host's batch assembly apart; steps on one fixed batch
+     must lower the loss; `episode_summary` (2 cooldown passes) writes
+     `save-<step>.bin`, which must read back bit for bit and, through
+     `load_model`, play one more legal move; one step under
+     torch.profiler gives the device's busy share;
+  7. profile: one more slice move under torch.profiler, device time by
      kernel group, with its own launch counts.
 
 Prints the card's nvidia-smi line, one JSON line describing the kernels,
@@ -37,10 +51,12 @@ A copy of the numbers goes to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import copy
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -49,7 +65,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 peak
 SLICE_B, SLICE_ROLLOUTS, SLICE_PER_BATCH, SLICE_MOVES = 32, 64, 8, 6
+# the train phase: self-play that feeds it, and the learner's batch
+TRAIN_GAMES, TRAIN_ROLLOUTS, TRAIN_PER_BATCH, TRAIN_CUTOFF = 32, 16, 8, 8
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED, TRAIN_FIXED, TRAIN_COOLDOWN = \
+    256, 3, 10, 6, 2
 
 
 def log(msg: str) -> None:
@@ -485,6 +506,306 @@ def profile_phase(card: str, net) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the learner at full width
+# ---------------------------------------------------------------------------
+
+
+def train_step_flops(cfg, batch: int) -> float:
+    """Operations of one train step from the shapes: 2 per multiply-add of
+    every convolution and dense layer in the forward pass, times 3 for
+    forward, input gradients and weight gradients."""
+    n2 = cfg.board_size ** 2
+    conv3 = 9 * (cfg.num_planes * cfg.dim
+                 + 2 * cfg.num_block * cfg.dim * cfg.dim)
+    conv1 = 3 * cfg.dim
+    dense = (2 * n2 * cfg.num_actions + n2 * cfg.value_hidden
+             + cfg.value_hidden)
+    return 3.0 * 2.0 * batch * (n2 * (conv3 + conv1) + dense)
+
+
+def state_tensors(state) -> dict:
+    """Every tensor of a TrainState by name: parameters, BN statistics and
+    optimizer slots."""
+    out = {f"net/{k}": v for k, v in state.net.state_dict().items()}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}/{k}")
+            else:
+                out[f"{prefix}/{k}"] = v
+
+    walk(state.opt_state, "opt")
+    return out
+
+
+def train_phase(card: str) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from elf_tpu_torch.config import ReplayOptions, TrainOptions
+    from elf_tpu_torch.env.go import kernels
+    from elf_tpu_torch.models.resnet import ModelConfig, eval_fn_builder, load_model
+    from elf_tpu_torch.native.replayer import (
+        replay_to_snapshots,
+        replay_to_snapshots_ref,
+    )
+    from elf_tpu_torch.search.mcts import MCTSConfig
+    from elf_tpu_torch.selfplay.actor import ActorConfig, SelfplayActor
+    from elf_tpu_torch.training.pipeline import TrainingPipeline
+    from elf_tpu_torch.training.replay import ReplayBuffer
+    from elf_tpu_torch.training.runner import LearnerRunner
+    from elf_tpu_torch.training.trainer import Trainer, load_checkpoint
+
+    size = 19
+    weights = str(ROOT / "runs/prove19/export-best.bin")
+    cfg = ModelConfig()          # 19x19, 20 blocks, 256 channels, bf16
+
+    # 1. self-play feeds the learner: 32 games cut at 8 moves
+    net = load_model(weights, cfg, "cuda")
+    actor = SelfplayActor(
+        ActorConfig(board_size=size, batch=TRAIN_GAMES, never_resign_prob=1.0,
+                    move_cutoff=TRAIN_CUTOFF),
+        MCTSConfig(num_rollouts=TRAIN_ROLLOUTS,
+                   rollouts_per_batch=TRAIN_PER_BATCH, root_epsilon=0.25),
+        eval_fn_builder, seed=3, device="cuda",
+    )
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    records = actor.play_moves(net, None, TRAIN_CUTOFF)
+    torch.cuda.synchronize()
+    selfplay_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    expected = {"step_analysis": (TRAIN_ROLLOUTS + 1) * TRAIN_CUTOFF,
+                "analyze_libs": TRAIN_CUTOFF}
+    for name, n in expected.items():
+        if launches[name] <= 0:
+            fail(f"train: {name} was not launched by the self-play")
+        if launches[name] != n:
+            fail(f"train: {name}: {launches[name]} launches, expected {n}")
+    if len(records) != TRAIN_GAMES:
+        fail(f"train: {len(records)} records from {TRAIN_GAMES} games")
+    log(f"train: self-play B {TRAIN_GAMES}, {TRAIN_ROLLOUTS} rollouts, "
+        f"{TRAIN_CUTOFF} moves: {len(records)} records in {selfplay_s:.2f} s, "
+        f"launches {launches}")
+    del net
+
+    # 2. records -> replay buffer through the C replayer
+    pipeline = TrainingPipeline(
+        ReplayBuffer(ReplayOptions(num_reader=2, q_min_size=1,
+                                   q_max_size=1000), seed=0), size, seed=0)
+    # the first call builds and loads the C replayer: keep that out of the
+    # time per record
+    t0 = time.perf_counter()
+    replay_to_snapshots(np.zeros(1, np.int32), size)
+    log(f"train: C replayer built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    for r in records:
+        pipeline.insert_record(r)
+    insert_ms = (time.perf_counter() - t0) * 1e3 / len(records)
+    items = [it for q in pipeline.replay.queues for it in q]
+    if len(items) != len(records):
+        fail("train: the replay buffer does not hold every record")
+    for it in items:
+        res = it.record.result
+        plain = replay_to_snapshots_ref(it.moves, size, it.first_player,
+                                        res.setup_black, res.setup_white)
+        if len(it.moves) != TRAIN_CUTOFF or \
+                not np.array_equal(it.snapshots, plain):
+            fail("train: the C replayer differs from its plain version")
+
+    # 3. the learner: committed export onto fp32 masters, fresh optimizer
+    opts = TrainOptions(batchsize=TRAIN_BATCH, num_cooldown=TRAIN_COOLDOWN)
+    trainer = Trainer(cfg, opts, device="cuda")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    runner = LearnerRunner(trainer, pipeline, ckpt_dir, opts, seed=0)
+    runner.state = load_checkpoint(weights, runner.state)
+    step0 = runner.state.step
+    if any(p.dtype != torch.float32 for p in runner.state.net.parameters()):
+        fail("train: the master weights are not fp32")
+    before = {k: v.clone() for k, v in state_tensors(runner.state).items()}
+
+    def check_stats(stats, where):
+        for k, v in stats.items():
+            if not np.isfinite(v):
+                fail(f"train: {k} = {v} {where}")
+
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_WARMUP):
+        stats = runner.run_minibatch()
+        if stats is None:
+            fail("train: the replay buffer gave no batch")
+        check_stats(stats, f"at warm-up step {i}")
+    first_stats = stats
+
+    # timed: host batch assembly, device batch, and the step apart
+    sample_ms, device_batch_ms, step_ms = [], [], []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for i in range(TRAIN_TIMED):
+        t0 = time.perf_counter()
+        hb = runner.pipeline.sample_host_batch(opts.batchsize)
+        t1 = time.perf_counter()
+        batch = runner.pipeline.device_batch(hb, "cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        start.record()
+        runner.state, stats = runner._train_step(runner.state, *batch)
+        end.record()
+        torch.cuda.synchronize()
+        sample_ms.append((t1 - t0) * 1e3)
+        device_batch_ms.append((t2 - t1) * 1e3)
+        step_ms.append(start.elapsed_time(end))
+        check_stats({k: float(v) for k, v in stats.items()},
+                    f"at timed step {i}")
+    # and whole minibatches as the runner runs them, by the host's clock
+    t0 = time.perf_counter()
+    for i in range(TRAIN_TIMED):
+        check_stats(runner.run_minibatch(), f"at minibatch {i}")
+    torch.cuda.synchronize()
+    minibatch_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
+    peak_bytes = torch.cuda.max_memory_allocated()
+    n_steps = TRAIN_WARMUP + 2 * TRAIN_TIMED
+    if runner.state.step != step0 + n_steps:
+        fail(f"train: step {runner.state.step} after {n_steps} steps from "
+             f"{step0}")
+    now = state_tensors(runner.state)
+    unchanged = [k for k, v in before.items()
+                 if k.startswith("net/") and torch.equal(v, now[k])]
+    if unchanged:
+        fail(f"train: {len(unchanged)} tensors of the net did not change, "
+             f"e.g. {unchanged[0]}")
+
+    # repeated steps on one fixed batch lower the loss
+    fixed = runner.pipeline.device_batch(
+        runner.pipeline.sample_host_batch(opts.batchsize), "cuda")
+    fixed_loss = []
+    for i in range(TRAIN_FIXED):
+        runner.state, stats = runner._train_step(runner.state, *fixed)
+        stats = {k: float(v) for k, v in stats.items()}
+        check_stats(stats, f"at fixed-batch step {i}")
+        fixed_loss.append(stats["loss/total"])
+    if not fixed_loss[-1] < fixed_loss[0]:
+        fail(f"train: the loss on one fixed batch did not fall: {fixed_loss}")
+
+    # one step under the profiler: the device's busy share
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.state, _ = runner._train_step(runner.state, *fixed)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {"conv/gemm": 0.0, "other": 0.0}
+    by_name, n_kernels = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.device_time_total if hasattr(e, "device_time_total") \
+                else e.cuda_time_total
+            n_kernels += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+            is_nn = any(w in e.name.lower() for w in _NN_KERNEL_WORDS)
+            groups["conv/gemm" if is_nn else "other"] += us / 1e3
+    busy_ms = sum(groups.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+
+    # 4. cooldown + checkpoint
+    pre = {k: v.clone() for k, v in state_tensors(runner.state).items()}
+    cool0 = torch.cuda.Event(enable_timing=True)
+    cool1 = torch.cuda.Event(enable_timing=True)
+    feats = fixed[0]
+    snapshot = copy.deepcopy(runner.state)
+    cool0.record()
+    for _ in range(TRAIN_COOLDOWN):
+        runner._cooldown_step(snapshot, feats)
+    cool1.record()
+    torch.cuda.synchronize()
+    cooldown_ms = cool0.elapsed_time(cool1) / TRAIN_COOLDOWN
+    del snapshot
+    version = runner.episode_summary()
+    post = state_tensors(runner.state)
+    moved = [k for k in pre if not torch.equal(pre[k], post[k])]
+    if not moved or not all("running_" in k for k in moved):
+        fail("train: the cooldown must change BN statistics and nothing "
+             f"else; changed: {moved[:4]}")
+    if len(moved) != 2 * (2 * cfg.num_block + 3):
+        fail(f"train: the cooldown changed {len(moved)} BN statistics")
+    path = Path(ckpt_dir) / f"save-{version}.bin"
+    if version != runner.state.step or not path.is_file() or \
+            (Path(ckpt_dir) / "latest").resolve() != path.resolve():
+        fail(f"train: episode_summary did not write {path.name}")
+    back = load_checkpoint(ckpt_dir, runner.state)
+    back_t = state_tensors(back)
+    if back.step != runner.state.step or back_t.keys() != post.keys():
+        fail("train: the checkpoint's structure differs from the state's")
+    for k, v in post.items():
+        if v.dtype != back_t[k].dtype or not torch.equal(v, back_t[k].to(v.device)):
+            fail(f"train: {k} read back from the checkpoint differs")
+    ckpt_mb = path.stat().st_size / 1e6
+
+    # the trained file serves: load_model -> one more legal move
+    net2 = load_model(str(path), cfg, "cuda")
+    actor.play_moves(net2, None, 1)
+    stones = replay_is_legal(actor.moves, size)
+    if not all(len(m) == 1 for m in actor.moves) or \
+            not torch.equal(stones, actor.state.core.stones):
+        fail("train: the trained net's move does not replay legally")
+
+    flops = train_step_flops(cfg, TRAIN_BATCH)
+    bound_ms = flops / BF16_FLOPS_PER_S * 1e3
+    med = float(np.median(step_ms))
+    out = dict(
+        card=card, batch=TRAIN_BATCH, records=len(records),
+        selfplay_s=selfplay_s, launches=launches,
+        insert_ms_per_record=insert_ms,
+        step_ms_median=med, step_ms_min=min(step_ms), step_ms_max=max(step_ms),
+        step_ms=step_ms, positions_per_s=TRAIN_BATCH / med * 1e3,
+        sample_host_batch_ms=float(np.median(sample_ms)),
+        device_batch_ms=float(np.median(device_batch_ms)),
+        run_minibatch_ms=minibatch_ms,
+        run_minibatch_positions_per_s=TRAIN_BATCH / minibatch_ms * 1e3,
+        cooldown_ms=cooldown_ms, peak_memory_bytes=peak_bytes,
+        step_flops=flops, bound_ms=bound_ms, bound_share=bound_ms / med,
+        profile=dict(wall_ms=prof_wall_ms, device_busy_ms=busy_ms,
+                     device_busy_share=busy_ms / prof_wall_ms,
+                     groups_ms=groups, device_kernels=n_kernels,
+                     top_kernels_ms=top),
+        first_stats=first_stats, fixed_batch_loss=fixed_loss,
+        checkpoint_mb=ckpt_mb, version=version,
+    )
+    log(f"train: 19x19 20b256c bf16, fp32 masters, B {TRAIN_BATCH}: step "
+        f"{med:.2f} ms median ({min(step_ms):.2f}-{max(step_ms):.2f}, "
+        f"{TRAIN_TIMED} steps, CUDA events), "
+        f"{out['positions_per_s']:.1f} positions/s, on {card}")
+    log(f"train: bound {bound_ms:.3f} ms ({flops / 1e12:.3f} TFLOP per step "
+        f"at the dense bf16 peak): the step runs at "
+        f"{100 * bound_ms / med:.1f}% of it, on {card}")
+    log(f"train: host sample_host_batch {out['sample_host_batch_ms']:.2f} ms, "
+        f"device_batch {out['device_batch_ms']:.2f} ms, whole run_minibatch "
+        f"{minibatch_ms:.2f} ms ({out['run_minibatch_positions_per_s']:.1f} "
+        f"positions/s), insert_record {insert_ms:.3f} ms/record, cooldown "
+        f"pass {cooldown_ms:.2f} ms, on {card}")
+    log(f"train: peak memory {peak_bytes / 2 ** 30:.2f} GiB "
+        f"(max_memory_allocated over the steps), checkpoint "
+        f"{ckpt_mb:.1f} MB, version {version}, on {card}")
+    log(f"train: one step under the profiler: wall {prof_wall_ms:.1f} ms, "
+        f"device busy {busy_ms:.1f} ms ({100 * busy_ms / prof_wall_ms:.1f}%), "
+        f"{n_kernels} kernels; conv/gemm {groups['conv/gemm']:.2f} ms, other "
+        f"{groups['other']:.2f} ms, on {card}")
+    for k, v in top:
+        log(f"train:   top {v:8.3f} ms  {k[:90]}")
+    log(f"train: loss/total {first_stats['loss/total']:.4f} at warm-up, "
+        f"fixed batch {fixed_loss[0]:.4f} -> {fixed_loss[-1]:.4f}; cooldown "
+        "changed BN statistics only; checkpoint read back bit for bit; "
+        "load_model on it played a legal move")
+    for f in Path(ckpt_dir).iterdir():
+        f.unlink()
+    Path(ckpt_dir).rmdir()
+    return out
+
+
+
+# ---------------------------------------------------------------------------
 # phase 5: record emission
 # ---------------------------------------------------------------------------
 
@@ -562,6 +883,7 @@ def main() -> int:
     result["kernels"] = kernel_phase(np.random.default_rng(0))
     result["slice"], net = slice_phase(card)
     result["records"] = record_phase()
+    result["train"] = train_phase(card)
     result["profile"] = profile_phase(card, net)
 
     rows = []
@@ -577,6 +899,7 @@ def main() -> int:
             "source": "elf_tpu_torch/csrc/go_libs.cu",
             "replaces": replaces[name],
             "launches": result["slice"]["launches"][name],
+            "launches_train": result["train"]["launches"][name],
             "max_abs_err": k["worst"][name], "ms": t["union-find"]["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None,

@@ -1,10 +1,12 @@
-"""Build and load the port's CUDA kernels (nvcc into a shared library with a
-plain C interface, loaded through ctypes).
+"""Build and load the port's native code: the CUDA kernels (nvcc) and the
+host-side C helpers (the host C compiler), each into a shared library with
+a plain C interface, loaded through ctypes.
 
-A source `csrc/<name>.cu` becomes `build/kernels/<name>-<hash>.so` at the
-root of the checkout, at first use; the hash covers the source and the
-compiler flags, so an edited source rebuilds and an unchanged one loads
-what is already there.  Nothing is built when a module is imported.
+A source `csrc/<name>.cu` or `csrc/<name>.c` becomes
+`build/kernels/<name>-<hash>.so` at the root of the checkout, at first
+use; the hash covers the source and the compiler flags, so an edited
+source rebuilds and an unchanged one loads what is already there.  Nothing
+is built when a module is imported, and a failed build raises.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CC_FLAGS = ("-O2", "-shared", "-fPIC")
 
 
 def nvcc() -> str:
@@ -40,26 +43,40 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def host_cc() -> str:
+    """The host C compiler: $CC, then cc, gcc, clang on PATH."""
+    for c in (os.environ.get("CC"), "cc", "gcc", "clang"):
+        if c and shutil.which(c):
+            return shutil.which(c)
+    raise RuntimeError("no host C compiler found (set CC)")
+
+
 def build(name: str) -> Tuple[Path, str]:
-    """Build csrc/<name>.cu unless it is built already.  Returns the
-    library's path and nvcc's output with the ptxas report ("" when the
-    library was already built)."""
+    """Build csrc/<name>.cu (nvcc) or csrc/<name>.c (host compiler) unless
+    it is built already.  Returns the library's path and the compiler's
+    output, for nvcc with the ptxas report ("" when the library was
+    already built)."""
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    if src.exists():
+        compiler, flags = nvcc, NVCC_FLAGS
+    else:
+        src = CSRC / f"{name}.c"
+        compiler, flags = host_cc, CC_FLAGS
+    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([compiler(), *flags, "-o", str(tmp), str(src)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+        raise RuntimeError(f"build failed for {src.name}:\n{proc.stdout}")
     os.replace(tmp, out)
     return out, proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The library of csrc/<name>.cu, built first if needed."""
+    """The library of csrc/<name>.cu or .c, built first if needed."""
     return ctypes.CDLL(str(build(name)[0]))

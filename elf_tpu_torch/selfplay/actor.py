@@ -14,7 +14,7 @@ search per ply:
 Finished games become protocol Records and their boards restart in place.
 Not ported yet (each raises NotImplementedError): persistent trees, the
 host-chunked search (`max_batches_per_call`), SGF preload and SGF dumps,
-the two-model pair evaluator and mesh sharding.
+and mesh sharding.
 """
 
 from __future__ import annotations
@@ -60,6 +60,31 @@ class ActorConfig:
     preload_sgf_move_to: int = -1
     policy_distri_training_for_all: bool = False
     following_pass: bool = False
+
+
+def make_pair_eval_builder(eval_raw):
+    """Two-model evaluator for eval games (candidate vs baseline,
+    ctrl_eval.h): params / batch_stats are (black_model, white_model)
+    pairs, `eval_raw(params, batch_stats, feats)` is
+    `Trainer.make_eval_fn()`; each MCTS leaf is routed to the mover's net.
+    Lockstep-friendly at twice the NN cost."""
+
+    def build(params, batch_stats):
+        p_black, p_white = params
+        b_black, b_white = batch_stats
+
+        def eval_fn(feats, to_play):
+            lp_b, v_b = eval_raw(p_black, b_black, feats)
+            lp_w, v_w = eval_raw(p_white, b_white, feats)
+            is_black = to_play == BLACK
+            return (
+                torch.where(is_black[:, None], lp_b, lp_w),
+                torch.where(is_black, v_b, v_w),
+            )
+
+        return eval_fn
+
+    return build
 
 
 def _maybe_follow_pass(cfg: ActorConfig, state: GoState, action, v, size: int):

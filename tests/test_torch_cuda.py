@@ -192,3 +192,119 @@ def test_golden_search_on_card(dev):
     for e in g["edges"]:
         ref[e["a"]] = e["n"]
     np.testing.assert_array_equal(ours.numpy(), ref)
+
+
+def _learner_pair(use_bf16, dev, **opts):
+    """The same freshly initialised TrainState on the CPU and on the card."""
+    import copy
+
+    from elf_tpu_torch.config import TrainOptions
+    from elf_tpu_torch.models.resnet import ModelConfig
+    from elf_tpu_torch.training.trainer import Trainer
+
+    cfg = ModelConfig(board_size=9, num_block=2, dim=16, use_bf16=use_bf16)
+    topts = TrainOptions(batchsize=8, lr=0.05, **opts)
+    cpu = Trainer(cfg, topts, device="cpu")
+    card = Trainer(cfg, topts, device=dev)
+    state = cpu.init_state(torch.Generator().manual_seed(0))
+    on_card = copy.deepcopy(state)
+    on_card.net = on_card.net.to(dev)
+    on_card.opt_state = card.tx.init(on_card.net)
+    return cpu, state, card, on_card
+
+
+def _train_batch(seed):
+    rng = np.random.default_rng(seed)
+    feats = (rng.random((8, 9, 9, 18)) < 0.3).astype(np.float32)
+    pi = rng.dirichlet(np.full(82, 0.3), size=8).astype(np.float32)
+    winner = rng.choice([-1.0, 1.0], size=8).astype(np.float32)
+    return [torch.from_numpy(a) for a in (feats, pi, winner)]
+
+
+@pytest.mark.parametrize("opt_method", ["sgd", "adam"])
+def test_train_steps_on_card_match_cpu(dev, opt_method, monkeypatch):
+    """Three fp32 train steps and a cooldown pass on the card against the
+    same steps on the CPU: stats, parameters, BN statistics and optimizer
+    slots within 1e-4 (cuDNN and the CPU sum in different orders).  TF32
+    convolutions, cuDNN's default for fp32, are off for the comparison."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cpu, a, card, b = _learner_pair(False, dev, opt_method=opt_method,
+                                    grad_clip_norm=0.5)
+    step_a, step_b = cpu.make_train_step(), card.make_train_step()
+    for i in range(3):
+        batch = _train_batch(i)
+        a, sa = step_a(a, *batch)
+        b, sb = step_b(b, *(t.to(dev) for t in batch))
+        for k in sa:
+            assert abs(float(sa[k]) - float(sb[k])) < 1e-4 * max(
+                1.0, abs(float(sa[k]))), (i, k)
+    feats = _train_batch(9)[0]
+    cpu.make_cooldown_step()(a, feats)
+    card.make_cooldown_step()(b, feats.to(dev))
+    assert b.step == a.step == 3
+    for (n, x), (_, y) in zip(a.net.state_dict().items(),
+                              b.net.state_dict().items()):
+        assert y.device.type == "cuda"
+        torch.testing.assert_close(y.cpu(), x, atol=1e-4, rtol=0, msg=n)
+    inner = str(card.tx.index)
+    for slot, tensors in a.opt_state[inner]["0"].items():
+        if slot == "count":
+            assert int(tensors) == int(b.opt_state[inner]["0"][slot]) == 3
+            continue
+        for n, x in tensors.items():
+            torch.testing.assert_close(b.opt_state[inner]["0"][slot][n].cpu(),
+                                       x, atol=1e-4, rtol=0, msg=f"{slot}/{n}")
+
+
+def test_bf16_step_and_checkpoint_on_card(dev, tmp_path):
+    """A bf16 train step on the card keeps fp32 masters, inference follows
+    the updated weights, and a checkpoint written from the card loads back
+    bit for bit onto the card and onto the CPU."""
+    from elf_tpu_torch.training.trainer import load_checkpoint, save_checkpoint
+
+    cpu, a, card, b = _learner_pair(True, dev)
+    batch = [t.to(dev) for t in _train_batch(1)]
+    with torch.inference_mode():
+        before = b.net(batch[0])[0].clone()
+    b, stats = card.make_train_step()(b, *batch)
+    assert all(np.isfinite(float(v)) for v in stats.values())
+    assert all(p.dtype == torch.float32 and p.device.type == "cuda"
+               for p in b.net.parameters())
+    with torch.inference_mode():
+        after = b.net(batch[0])[0]
+    assert not torch.allclose(before, after)
+    save_checkpoint(str(tmp_path), b)
+    for template in (b, a):
+        back = load_checkpoint(str(tmp_path), template)
+        assert back.step == 1
+        for (n, x), (_, y) in zip(b.net.state_dict().items(),
+                                  back.net.state_dict().items()):
+            assert y.device == next(template.net.parameters()).device
+            assert torch.equal(x.cpu(), y.cpu()), n
+
+
+def test_device_batch_on_card_matches_cpu(dev):
+    from elf_tpu_torch.config import ReplayOptions
+    from elf_tpu_torch.selfplay.records import make_record
+    from elf_tpu_torch.training.pipeline import TrainingPipeline
+    from elf_tpu_torch.training.replay import ReplayBuffer
+
+    with gzip.open(os.path.join(GOLDEN_DIR, "ref_traj_9.jsonl.gz"), "rt") as f:
+        games = [json.loads(line) for line in f][:6]
+    tp = TrainingPipeline(ReplayBuffer(ReplayOptions(num_reader=2), seed=1),
+                          9, seed=2, num_future_actions=2)
+    rng = np.random.default_rng(0)
+    for i, g in enumerate(games):
+        moves = g["actions"][:40]
+        pols = [rng.dirichlet(np.full(82, 0.1)).astype(np.float32)
+                for _ in moves]
+        tp.insert_record(make_record(moves, 1.0 if i % 2 else -1.0, pols,
+                                     [0.0] * len(moves), 9))
+    hb = tp.sample_host_batch(32)
+    for on_card, on_cpu in zip(tp.device_batch(hb, dev) +
+                               tp.device_batch_offline(hb, dev),
+                               tp.device_batch(hb, "cpu") +
+                               tp.device_batch_offline(hb, "cpu")):
+        assert on_card.device.type == "cuda"
+        assert torch.equal(on_card.cpu(), on_cpu)

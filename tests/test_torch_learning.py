@@ -1,0 +1,267 @@
+"""The closed loop on the CPU: `head_to_head` and `make_pair_eval_builder`
+against the JAX ones on a fixed pair of small nets, the learner runner's
+cycle, and the twin of tests/test_learning.py: the port's no-cheat
+self-play -> replay -> train -> checkpoint loop at 5x5 must make a net that
+beats its frozen random initialisation under policy-only play.
+
+The 5x5 proof takes the JAX test's arguments.  Its seed picks the random
+initialisation the trained net is measured against, and policy-only 5x5
+play against a random net depends on that net more than on the training:
+a random net that never passes beats a net that has learned to pass (of
+six random nets tried, three beat the nets either package trained).  Seed
+11 gives an initialisation of the losing kind, as the JAX script's
+default seed does for flax's generator."""
+
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from elf_tpu.config import TrainOptions as JTrainOptions
+from elf_tpu.models.resnet import ModelConfig as JModelConfig
+from elf_tpu.models.resnet import init_params
+from elf_tpu.search.mcts import MCTSConfig as JMCTSConfig
+from elf_tpu.selfplay.actor import ActorConfig as JActorConfig
+from elf_tpu.selfplay.actor import SelfplayActor as JSelfplayActor
+from elf_tpu.selfplay.actor import make_pair_eval_builder as jmake_pair
+from elf_tpu.tools import match as jmatch
+from elf_tpu.training.trainer import Trainer as JTrainer
+from elf_tpu_torch.config import ReplayOptions, TrainOptions
+from elf_tpu_torch.models.resnet import ModelConfig, params_from_jax
+from elf_tpu_torch.search.mcts import MCTSConfig
+from elf_tpu_torch.selfplay.actor import (
+    ActorConfig,
+    SelfplayActor,
+    make_pair_eval_builder,
+)
+from elf_tpu_torch.selfplay.records import MsgRequest
+from elf_tpu_torch.stats import WinRate
+from elf_tpu_torch.tools import match as tmatch
+from elf_tpu_torch.training.pipeline import TrainingPipeline
+from elf_tpu_torch.training.replay import ReplayBuffer
+from elf_tpu_torch.training.runner import LearnerRunner
+from elf_tpu_torch.training.trainer import Trainer, load_checkpoint
+from scripts.prove_learning_torch import main as prove_main
+
+SIZE = 5
+NET = dict(board_size=SIZE, num_block=1, dim=8, use_bf16=False)
+
+CI_ARGS = [
+    "--device", "cpu", "--seed", "11",
+    "--board_size", "5", "--blocks", "1", "--dim", "16",
+    "--batch_boards", "32", "--rollouts", "16",
+    "--rollouts_per_batch", "8", "--train_bs", "64",
+    "--komi", "2.5", "--sample_ratio", "2.0",
+    "--eval_every_games", "120", "--eval_games", "24",
+    "--eval_rollouts", "0", "--final_games", "48",
+    "--target_winrate", "0.6", "--min_replay_games", "32",
+    "--policy_distri_cutoff", "4", "--ply_pass_enabled", "8",
+]
+
+
+def _two_nets():
+    """Two flax-initialised small nets, in both packages."""
+    jcfg = JModelConfig(**NET)
+    out = []
+    for seed in (1, 2):
+        params, stats = init_params(jcfg, jax.random.PRNGKey(seed))
+        params = jax.tree.map(lambda a: np.asarray(a, np.float32), params)
+        stats = jax.tree.map(lambda a: np.asarray(a, np.float32), stats)
+        out.append(((params, stats),
+                    params_from_jax(params, stats, ModelConfig(**NET), "cpu")))
+    return jcfg, out
+
+
+def test_elo_diff_matches_jax():
+    for wr in (0.0, 0.25, 0.5, 0.716, 1.0):
+        assert tmatch.elo_diff(wr) == jmatch.elo_diff(wr)
+    assert tmatch.elo_diff(0.5) == 0.0 and tmatch.elo_diff(0.75) > 190
+
+
+@pytest.mark.timeout(300)
+def test_pair_eval_builder_routes_each_mover_to_its_net():
+    jcfg, ((ja, ta), (jb, tb)) = _two_nets()
+    rng = np.random.default_rng(0)
+    feats = (rng.random((6, SIZE, SIZE, 18)) < 0.3).astype(np.float32)
+    to_play = np.array([1, 2, 2, 1, 1, 2], np.int8)
+
+    jraw = JTrainer(jcfg, JTrainOptions()).make_eval_fn()
+    traw = Trainer(ModelConfig(**NET), TrainOptions(), "cpu").make_eval_fn()
+    jfn = jmake_pair(jraw)((ja[0], jb[0]), (ja[1], jb[1]))
+    tfn = make_pair_eval_builder(traw)((ta, tb), (None, None))
+    lp_j, v_j = jfn(jnp.asarray(feats), jnp.asarray(to_play))
+    with torch.no_grad():
+        lp_t, v_t = tfn(torch.from_numpy(feats), torch.from_numpy(to_play))
+        lp_a, v_a = ta(torch.from_numpy(feats))
+        lp_b, v_b = tb(torch.from_numpy(feats))
+    np.testing.assert_allclose(lp_t.numpy(), np.asarray(lp_j), atol=1e-5)
+    np.testing.assert_allclose(v_t.numpy(), np.asarray(v_j), atol=1e-5)
+    black = torch.from_numpy(to_play == 1)
+    assert torch.equal(lp_t, torch.where(black[:, None], lp_a, lp_b))
+    assert torch.equal(v_t, torch.where(black, v_a, v_b))
+    assert not torch.allclose(lp_a, lp_b)
+
+
+@pytest.mark.timeout(600)
+def test_head_to_head_matches_jax():
+    """Policy-only (num_rollouts=0), argmax from ply 0, no random
+    symmetry: the games are a function of the two nets alone, so both
+    packages must count the same wins and play the same games."""
+    jcfg, ((ja, ta), (jb, tb)) = _two_nets()
+    acfg = dict(board_size=SIZE, batch=2, komi=2.5, policy_distri_cutoff=-1,
+                resign_thres=0.0, never_resign_prob=1.0)
+    mcfg = dict(num_rollouts=0, rotation_flip=False, root_epsilon=0.0,
+                komi=2.5, ply_pass_enabled=8)
+    jraw = JTrainer(jcfg, JTrainOptions()).make_eval_fn()
+    traw = Trainer(ModelConfig(**NET), TrainOptions(), "cpu").make_eval_fn()
+    jactor = JSelfplayActor(JActorConfig(**acfg), JMCTSConfig(**mcfg),
+                            jmake_pair(jraw), seed=3)
+    tactor = SelfplayActor(ActorConfig(**acfg), MCTSConfig(**mcfg),
+                           make_pair_eval_builder(traw), seed=3, device="cpu")
+    jsink, tsink = [], []
+    jres = jmatch.head_to_head(jactor, ja, jb, 2, moves_per_call=4,
+                               record_sink=jsink)
+    tres = tmatch.head_to_head(tactor, (ta, None), (tb, None), 2,
+                               moves_per_call=4, record_sink=tsink)
+    assert tres == jres and tres[1] >= 4
+    assert [(r.result.content, r.result.reward, won) for r, won in tsink] == \
+        [(r.result.content, r.result.reward, won) for r, won in jsink]
+    # both halves were played: A as black, then A as white
+    assert {won == (r.result.reward > 0) for r, won in tsink[:2]} == {True}
+    assert {won == (r.result.reward < 0) for r, won in tsink[-2:]} == {True}
+
+
+def _selfplay_records(n_moves=12):
+    cfg = ModelConfig(board_size=SIZE, num_block=1, dim=8)
+    trainer = Trainer(cfg, TrainOptions(batchsize=16, num_cooldown=2,
+                                        num_block=1, dim=8), device="cpu")
+    raw = trainer.make_eval_fn()
+    actor = SelfplayActor(
+        ActorConfig(board_size=SIZE, batch=8, komi=2.5, move_cutoff=6,
+                    never_resign_prob=1.0, policy_distri_cutoff=4),
+        MCTSConfig(num_rollouts=4, rollouts_per_batch=4, root_epsilon=0.25,
+                   komi=2.5),
+        lambda net, bs: (lambda feats, to_play: raw(net, bs, feats)),
+        seed=1, device="cpu")
+    return trainer, actor
+
+
+@pytest.mark.timeout(300)
+def test_learner_runner_cycle(tmp_path):
+    trainer, actor = _selfplay_records()
+    opts = trainer.opts
+    runner = LearnerRunner(
+        trainer,
+        TrainingPipeline(ReplayBuffer(ReplayOptions(
+            num_reader=2, q_min_size=1, q_max_size=100), seed=0), SIZE, seed=0),
+        str(tmp_path), opts, seed=0)
+    assert runner.run_minibatch() is None and runner.run_cooldown() == 0
+    wr = WinRate()
+    req = MsgRequest()
+    req.vers.black_ver = 5
+    for r in actor.play_moves(runner.state.net, None, 12, request=req):
+        runner.pipeline.insert_record(r)
+        wr.feed(r.result.reward)
+    assert wr.total == 16 and wr.black_wins + wr.white_wins == 16
+    assert 0.0 <= wr.black_winrate() <= 1.0 and "B/W" in wr.summary()
+
+    stats = runner.episode(3)
+    assert set(stats) == {"loss/policy", "loss/value", "loss/total",
+                          "entropy", "blackwin", "grad_norm"}
+    assert all(np.isfinite(v) for v in stats.values())
+    assert runner.version() == 3
+    before = {n: p.clone() for n, p in runner.state.net.named_parameters()}
+    var0 = runner.state.net.init_bn.running_var.clone()
+    assert runner.episode_summary() == 3
+    assert all(torch.equal(p, before[n])
+               for n, p in runner.state.net.named_parameters())
+    assert not torch.equal(var0, runner.state.net.init_bn.running_var)
+    assert os.path.exists(tmp_path / "save-3.bin")
+    back = load_checkpoint(str(tmp_path), runner.state)
+    assert back.step == 3
+    for (n, a), (_, b) in zip(back.net.state_dict().items(),
+                              runner.state.net.state_dict().items()):
+        assert torch.equal(a, b), n
+
+    # the stale-version skip (train.py:72): records carry version 5
+    runner.version_provider = lambda: 6
+    runner.keep_prev_selfplay = False
+    assert runner.run_minibatch() is None
+    assert runner.skipped_stale_batches == 1 and runner.version() == 3
+    runner.version_provider = lambda: 5
+    assert runner.run_minibatch() is not None and runner.version() == 4
+    runner.save_enabled = False
+    assert runner.episode_summary() == 4
+    assert not os.path.exists(tmp_path / "save-4.bin")
+
+
+def test_script_refuses_the_ladder_and_defaults_to_the_card(tmp_path):
+    with pytest.raises(NotImplementedError):
+        prove_main(["--device", "cpu", "--ladder_every", "2",
+                    "--out", str(tmp_path / "x")])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Trainer(ModelConfig(**NET), TrainOptions())
+        with pytest.raises(RuntimeError, match="CUDA"):
+            prove_main(["--out", str(tmp_path / "y")])
+
+
+@pytest.mark.timeout(600)
+def test_prove_learning_script_files_and_resume(tmp_path):
+    """One periodic eval at a tiny size with a target any net meets (so the
+    run ends after its confirmation match, whatever the machine's speed):
+    the curve, progress and checkpoint files, the exports and the anchor;
+    then a resumed run, which goes on from the checkpoint and the saved
+    progress and plays its anchor match."""
+    out = tmp_path / "run"
+    args = ["--device", "cpu", "--out", str(out), "--board_size", "5",
+            "--blocks", "1", "--dim", "8", "--batch_boards", "16",
+            "--rollouts", "4", "--rollouts_per_batch", "4", "--train_bs", "32",
+            "--komi", "2.5", "--eval_every_games", "24", "--eval_games", "8",
+            "--eval_rollouts", "0", "--final_games", "8",
+            "--target_winrate", "0.0", "--min_replay_games", "8",
+            "--policy_distri_cutoff", "4", "--ply_pass_enabled", "8",
+            "--export", "1", "--anchor_every", "1", "--keep", "2",
+            "--max_seconds", "500"]
+
+    def curve():
+        with open(out / "learning_curve.jsonl") as f:
+            return [json.loads(line) for line in f]
+
+    assert prove_main(args) == 0
+    point, final = curve()
+    assert {"games", "positions", "step", "wall_s", "wins", "n", "winrate",
+            "selfplay_black_winrate", "loss/total", "loss/policy",
+            "loss/value", "entropy"} <= set(point)
+    assert 0.0 <= point["winrate"] <= 1.0 and point["n"] >= 8
+    assert point["games"] >= 24 and point["step"] > 0
+    assert "anchor_winrate" not in point        # no anchor before this eval
+    assert final["final"] and final["passed"] and final["n"] >= 8
+    for name in ("init.bin", "init_params.bin", "export-latest.bin",
+                 "export-best.bin", "anchor.bin", "progress.json", "latest"):
+        assert os.path.lexists(out / name), name
+    saves = [f for f in os.listdir(out) if f.startswith("save-")]
+    assert 1 <= len(saves) <= 2                 # --keep 2
+    with open(out / "progress.json") as f:
+        progress = json.load(f)
+    assert progress["games"] >= point["games"] and progress["eval_idx"] == 1
+    assert progress["train_steps"] >= point["step"]
+
+    assert prove_main(args) == 0                # resumed
+    _, _, point2, final2 = curve()
+    assert point2["games"] >= point["games"] + 24
+    assert point2["step"] > point["step"]
+    assert 0.0 <= point2["anchor_winrate"] <= 1.0
+    assert point2["anchor_step"] == point["step"]
+    assert final2["final"] and final2["passed"]
+
+
+@pytest.mark.timeout(900)
+def test_selfplay_training_beats_random_init(tmp_path):
+    rc = prove_main(["--out", str(tmp_path / "ci5"), "--max_seconds", "420"]
+                    + CI_ARGS)
+    assert rc == 0, "trained model failed to beat its random init"

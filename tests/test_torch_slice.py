@@ -24,6 +24,7 @@ from elf_tpu.search.mcts import MCTSConfig as JMCTSConfig
 from elf_tpu.selfplay.actor import ActorConfig as JActorConfig
 from elf_tpu.selfplay.actor import SelfplayActor as JSelfplayActor
 from elf_tpu_torch.env.go import state as tgostate
+from elf_tpu_torch.config import ReplayOptions, TrainOptions
 from elf_tpu_torch.models.resnet import (
     ModelConfig,
     build_model,
@@ -162,6 +163,30 @@ def test_unported_actor_options_raise(option):
     with pytest.raises(NotImplementedError):
         SelfplayActor(ActorConfig(**{**ACTOR, **option}), MCTSConfig(**SEARCH),
                       eval_fn_builder, device="cpu")
+
+
+@pytest.mark.parametrize("option", ["remat", "mesh", "feature_set=df",
+                                    "train_mode=offline"])
+def test_unported_learner_options_raise(option, tmp_path):
+    from elf_tpu_torch.training.pipeline import TrainingPipeline
+    from elf_tpu_torch.training.replay import ReplayBuffer
+    from elf_tpu_torch.training.runner import LearnerRunner
+    from elf_tpu_torch.training.trainer import Trainer
+
+    small = dict(board_size=SIZE, num_block=1, dim=8)
+    replay = ReplayBuffer(ReplayOptions(num_reader=2))
+    with pytest.raises(NotImplementedError):
+        if option == "remat":
+            build_model(ModelConfig(**small, remat=True), device="cpu")
+        elif option == "feature_set=df":
+            TrainingPipeline(replay, SIZE, feature_set="df")
+        else:
+            trainer = Trainer(ModelConfig(**small), TrainOptions(),
+                              device="cpu")
+            kw = (dict(mesh=object()) if option == "mesh"
+                  else dict(train_mode="offline"))
+            LearnerRunner(trainer, TrainingPipeline(replay, SIZE),
+                          str(tmp_path), trainer.opts, **kw)
 
 
 def test_policy_quantization_matches_jax():
