@@ -40,13 +40,30 @@ Phases:
      `save-<step>.bin`, which must read back bit for bit and, through
      `load_model`, play one more legal move; one step under
      torch.profiler gives the device's busy share;
-  7. profile: one more slice move under torch.profiler, device time by
+  7. fleet: the production deployment, one `scripts/train_server_torch.py`
+     and two `scripts/selfplay_client_torch.py` processes on this card at
+     19x19 20b256c over TCP.  The server loads the committed weights onto
+     fp32 masters (batch 256, 4 steps per episode, 2 cooldown passes) and
+     drives the clients' search (16 rollouts); each client plays B = 32
+     boards cut at 8 moves, 8 moves per round.  The server journals the
+     records, trains, writes `save-<ver>.bin` and queues it; the first
+     client plays colour-swapped candidate-vs-baseline games and
+     `EvalSubCtrl` promotes or rejects the candidate.  The phase polls the
+     server's `status` and its log, ends the fleet at the first decision
+     (none within its deadline fails the run), and reads each process's
+     exit summary: games, journaled records, stage timers, peak memory and,
+     in each client, the liberty kernels' launch counts (set to 0 just
+     before its play loop) which must both be positive;
+  8. profile: one more slice move under torch.profiler, device time by
      kernel group, with its own launch counts.
 
-Prints the card's nvidia-smi line, one JSON line describing the kernels,
-and last `{"ok": true, "device": {...}}`.  Exits non-zero, before printing
-any result, when CUDA is unavailable or the port is not beside this file.
-A copy of the numbers goes to chiprun_out/chip_smoke.json.
+Prints the card's nvidia-smi line, one JSON line describing the kernels
+(`launches` is the slice's count, `launches_train` and `launches_fleet`
+those of the train and fleet phases), and last `{"ok": true, "device":
+{...}}`.  Exits non-zero, before printing any result, when CUDA is
+unavailable or the port is not beside this file.
+A copy of the numbers goes to chiprun_out/chip_smoke.json, the fleet's
+logs to chiprun_out/fleet/.
 """
 
 from __future__ import annotations
@@ -71,6 +88,11 @@ SLICE_B, SLICE_ROLLOUTS, SLICE_PER_BATCH, SLICE_MOVES = 32, 64, 8, 6
 TRAIN_GAMES, TRAIN_ROLLOUTS, TRAIN_PER_BATCH, TRAIN_CUTOFF = 32, 16, 8, 8
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED, TRAIN_FIXED, TRAIN_COOLDOWN = \
     256, 3, 10, 6, 2
+# the fleet: clients, boards per client, rollouts, train steps per episode,
+# games before the first episode (and per later one), eval games per
+# candidate, and the time the first eval decision may take
+FLEET_CLIENTS, FLEET_B, FLEET_ROLLOUTS, FLEET_MINIBATCH = 2, 32, 16, 4
+FLEET_INIT, FLEET_EVAL_GAMES, FLEET_DEADLINE_S = 32, 8, 600
 
 
 def log(msg: str) -> None:
@@ -804,6 +826,239 @@ def train_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the production fleet (train_server + selfplay_client over TCP)
+# ---------------------------------------------------------------------------
+
+
+_STAMP = re.compile(r"^\[(\d\d):(\d\d):(\d\d)\.(\d\d\d)\]")
+
+
+def log_seconds(line: str) -> float:
+    """Seconds since midnight of a log line's `[HH:MM:SS.mmm]` stamp."""
+    h, m, s, ms = (int(x) for x in _STAMP.match(line).groups())
+    return h * 3600 + m * 60 + s + ms / 1e3
+
+
+def log_summary(path: Path):
+    """The `summary {...}` JSON a fleet process logs at exit, or None."""
+    for line in reversed(path.read_text().splitlines()):
+        i = line.find("] summary {")
+        if i >= 0:
+            return json.loads(line[i + len("] summary "):])
+    return None
+
+
+def fleet_phase(card: str) -> dict:
+    """One train_server and two selfplay_client processes on this card at
+    19x19 20b256c, until EvalSubCtrl decides on the first candidate."""
+    import shutil
+    import signal
+
+    from elf_tpu_torch.control.transport import ControlClient
+
+    sys.path.append(str(ROOT / "scripts"))
+    from prove_production_torch import free_port, stop_all, wait_in_log
+
+    run_dir = ROOT / "build" / "chip_smoke_fleet"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    ckpt = run_dir / "ckpt"
+    ckpt.mkdir(parents=True)
+    log_dir = ROOT / "chiprun_out" / "fleet"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    common = ["--board_size", "19", "--num_block", "20", "--dim", "256",
+              "--port", str(port), "--num_rollouts", str(FLEET_ROLLOUTS),
+              "--rollouts_per_batch", str(TRAIN_PER_BATCH),
+              "--ckpt_dir", str(ckpt)]
+    server_cmd = [
+        sys.executable, str(ROOT / "scripts/train_server_torch.py"),
+        "--load", str(ROOT / "runs/prove19/export-best.bin"),
+        "--batchsize", str(TRAIN_BATCH), "--num_minibatch",
+        str(FLEET_MINIBATCH), "--num_cooldown", str(TRAIN_COOLDOWN),
+        "--expected_num_clients", str(FLEET_CLIENTS),
+        "--selfplay_init_num", str(FLEET_INIT),
+        "--selfplay_update_num", str(FLEET_INIT),
+        "--eval_num_games", str(FLEET_EVAL_GAMES),
+        "--num_reader", "2", "--q_min_size", "0", "--q_max_size", "1000",
+        "--root_epsilon", "0.25", *common,
+    ]
+    procs, files = {}, []
+
+    def spawn(name, cmd):
+        f = open(log_dir / f"{name}.log", "w")
+        files.append(f)
+        procs[name] = subprocess.Popen(cmd, cwd=ROOT, stdout=f,
+                                       stderr=subprocess.STDOUT, text=True)
+
+    def logs(name) -> str:
+        return (log_dir / f"{name}.log").read_text()
+
+    def tails() -> str:
+        return "\n".join(f"----- {n} -----\n{logs(n)[-3000:]}" for n in procs)
+
+    def check_alive():
+        for n, p in procs.items():
+            if p.poll() is not None:
+                fail(f"fleet: {n} exited with {p.returncode}\n{tails()}")
+
+    # one clock for the whole phase: seconds since the server's launch, for
+    # this process's reads and for the `[HH:MM:SS.mmm]` stamps of the logs
+    t_start = time.time()
+    lt = time.localtime(t_start)
+    t_start_of_day = (lt.tm_hour * 3600 + lt.tm_min * 60 + lt.tm_sec
+                      + t_start % 1)
+
+    def stamp_s(line: str) -> float:
+        return (log_seconds(line) - t_start_of_day) % 86400
+
+    def server_line(needle: str) -> str:
+        return next(l for l in logs("server").splitlines() if needle in l)
+
+    decision = None
+    try:
+        spawn("server", server_cmd)
+        deadline = t_start + FLEET_DEADLINE_S
+        if not wait_in_log(str(log_dir / "server.log"), "server up on :",
+                           procs["server"], deadline, "server ready"):
+            fail(f"fleet: the server was not ready in time\n{tails()}")
+        ready_s = stamp_s(server_line("] server up on :"))
+        log(f"fleet: server ready in {ready_s:.1f} s (20b256c export loaded "
+            "onto fp32 masters, initial checkpoint written)")
+        for k in range(FLEET_CLIENTS):
+            spawn(f"client{k}", [
+                sys.executable, str(ROOT / "scripts/selfplay_client_torch.py"),
+                "--num_games", str(FLEET_B),
+                "--move_cutoff", str(TRAIN_CUTOFF),
+                "--moves_per_round", str(TRAIN_CUTOFF),
+                "--seed", str(100 + k), *common])
+        poll = ControlClient("127.0.0.1", port, timeout=20.0)
+        status, last_poll = [], 0.0
+        while decision is None:
+            check_alive()
+            now = time.time()
+            if now > deadline:
+                fail(f"fleet: no eval decision in {FLEET_DEADLINE_S} s\n"
+                     f"{tails()}")
+            for line in logs("server").splitlines():
+                if "] PROMOTE eval " in line or "] rejected eval " in line:
+                    decision = line
+                    break
+            # a poll every 5 s, and one as soon as the decision is logged:
+            # the games the server had received by then
+            if decision is not None or now - last_poll > 5.0:
+                last_poll = now
+                st = poll.send("status", "")
+                if not isinstance(st, dict):
+                    fail(f"fleet: status answered {st!r}")
+                status.append({"wall_s": time.time() - t_start, **st})
+            time.sleep(0.5)
+        poll.close()
+    finally:
+        # clients first (each ends its round and logs its summary), then
+        # the server (SIGINT: it stops the control plane and logs its own)
+        clean = stop_all([p for n, p in procs.items()
+                          if n.startswith("client")], signal.SIGTERM, 60)
+        if "server" in procs:
+            clean &= stop_all([procs["server"]], signal.SIGINT, 60)
+        for f in files:
+            f.close()
+    if not clean:
+        fail(f"fleet: a process had to be killed\n{tails()}")
+    for n, p in procs.items():
+        if p.returncode != 0:
+            fail(f"fleet: {n} exited with {p.returncode}\n{tails()}")
+
+    queued = server_line("] queued candidate ")
+    cand = int(queued.split("] queued candidate ")[1].split()[0])
+    verdict = "PROMOTE" if "] PROMOTE eval " in decision else "rejected"
+    dec_cand = int(decision.split(" eval ")[1].split()[0])
+    if dec_cand != cand:
+        fail(f"fleet: the first decision is on {dec_cand}, not on the first "
+             f"candidate {cand}")
+    decided_s = stamp_s(decision)
+    notify_to_decision_s = decided_s - stamp_s(queued)
+    server = log_summary(log_dir / "server.log")
+    clients = {n: log_summary(log_dir / f"{n}.log") for n in procs
+               if n.startswith("client")}
+    if server is None or any(c is None for c in clients.values()):
+        fail(f"fleet: a process logged no summary\n{tails()}")
+    journaled = sum(
+        sum(1 for line in f.read_text().splitlines() if line.strip())
+        for f in (ckpt / "journal").glob("records-*.jsonl"))
+    if journaled != server["num_selfplay_games"] or journaled < FLEET_INIT:
+        fail(f"fleet: {journaled} records journaled, "
+             f"{server['num_selfplay_games']} self-play games accepted")
+    if server["num_eval_games"] <= 0:
+        fail("fleet: the server received no eval games")
+    for n, c in clients.items():
+        for k, v in c["kernel_launches"].items():
+            if v <= 0:
+                fail(f"fleet: {k} was not launched in {n}")
+    # the fleet's end-to-end rate: games the server received over the wall
+    # window from the first job it handed out to the poll at the decision
+    # (model loads, retries, idle polls and waits for the server included)
+    first_job_s = stamp_s(server_line("] new client "))
+    at_decision = status[-1]
+    window_s = at_decision["wall_s"] - first_job_s
+    games = at_decision["num_selfplay_games"] + at_decision["num_eval_games"]
+    # each client's busy rate, a control-plane layer metric: its games over
+    # the time of its rounds and shipping alone
+    for c in clients.values():
+        busy_s = sum(v["total_s"] for v in c["phases"].values())
+        c["busy_games_per_s"] = (c["selfplay_games"] + c["eval_games"]) / busy_s
+    eps = server["phases"]["train_episode"]
+    cool = server["phases"]["cooldown_checkpoint"]
+    out = dict(
+        card=card, n_clients=FLEET_CLIENTS, boards=FLEET_B,
+        rollouts=FLEET_ROLLOUTS, move_cutoff=TRAIN_CUTOFF,
+        batch=TRAIN_BATCH, num_minibatch=FLEET_MINIBATCH,
+        ready_s=ready_s, decided_s=decided_s,
+        notify_to_decision_s=notify_to_decision_s,
+        candidate=cand, decision=verdict, decision_line=decision,
+        journaled=journaled,
+        train_episode_ms=eps["total_s"] / eps["n"] * 1e3,
+        ms_per_step=eps["total_s"] / (eps["n"] * FLEET_MINIBATCH) * 1e3,
+        ms_per_step_min=eps["min_s"] / FLEET_MINIBATCH * 1e3,
+        cooldown_checkpoint_ms=cool["total_s"] / cool["n"] * 1e3,
+        server=server, clients=clients, status=status,
+        launches={k: sum(c["kernel_launches"][k] for c in clients.values())
+                  for k in ("step_analysis", "analyze_libs")},
+        first_job_s=first_job_s, window_s=window_s,
+        games_in_window=games, games_per_s=games / window_s,
+    )
+    log(f"fleet: 1 server + {FLEET_CLIENTS} clients, 19x19 20b256c, B "
+        f"{FLEET_B}, {FLEET_ROLLOUTS} rollouts, move_cutoff {TRAIN_CUTOFF}, "
+        f"batch {TRAIN_BATCH}, on {card}")
+    log(f"fleet: {server['num_selfplay_games']} self-play and "
+        f"{server['num_eval_games']} eval games received, {journaled} "
+        f"records journaled, {eps['n']} episodes")
+    log(f"fleet: server train_episode {out['train_episode_ms']:.1f} ms "
+        f"({out['ms_per_step']:.1f} ms per step, host clock, "
+        f"{FLEET_MINIBATCH} steps; fastest episode "
+        f"{out['ms_per_step_min']:.1f} ms per step), cooldown + checkpoint "
+        f"{out['cooldown_checkpoint_ms']:.1f} ms, peak memory "
+        f"{server['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
+    for n, c in clients.items():
+        ph = "; ".join(
+            f"{k} {v['total_s']:.2f} s over {v.get('rounds', v.get('n'))}"
+            + (f", {v['board_moves_per_s']:.2f} moves/s"
+               if "board_moves_per_s" in v else "")
+            for k, v in c["phases"].items())
+        log(f"fleet: {n}: {ph}; {c['selfplay_games']} self-play + "
+            f"{c['eval_games']} eval games ({c['busy_games_per_s']:.2f} games/s "
+            f"of its rounds and shipping), launches {c['kernel_launches']}, "
+            f"peak memory {c['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
+    log(f"fleet: {out['games_per_s']:.2f} games/s received by the server: "
+        f"{games} games in {window_s:.1f} s from the first job handed out "
+        f"({first_job_s:.1f} s after the server's launch) to the decision "
+        f"({TRAIN_CUTOFF}-move games, {FLEET_ROLLOUTS} rollouts), on {card}")
+    log(f"fleet: candidate {cand}: {verdict} "
+        f"{notify_to_decision_s:.1f} s after notify_new_version "
+        f"({decided_s:.1f} s after the server's launch)")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return out
+
 
 # ---------------------------------------------------------------------------
 # phase 5: record emission
@@ -884,6 +1139,7 @@ def main() -> int:
     result["slice"], net = slice_phase(card)
     result["records"] = record_phase()
     result["train"] = train_phase(card)
+    result["fleet"] = fleet_phase(card)
     result["profile"] = profile_phase(card, net)
 
     rows = []
@@ -900,6 +1156,7 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": result["slice"]["launches"][name],
             "launches_train": result["train"]["launches"][name],
+            "launches_fleet": result["fleet"]["launches"][name],
             "max_abs_err": k["worst"][name], "ms": t["union-find"]["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None,

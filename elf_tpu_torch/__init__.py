@@ -5,14 +5,20 @@ counterpart by the `tests/test_torch_*.py` suite:
 
   env/go     engine, state, AGZ-18 features, the liberty kernels' wrappers
   models     policy/value ResNet (inference and training), flax-msgpack
-             checkpoints both ways
+             checkpoints both ways, the model-family registry
   search     array-of-trees MCTS
-  selfplay   lockstep actor, pair evaluator, records
+  selfplay   lockstep actor, pair evaluator, records and wire types
   training   loss, trainer (optimizer, train / cooldown steps), replay
              buffer, batch pipeline, learner runner
+  control    the TCP control plane: transport, record journal, client
+             manager, self-play and eval controllers, training server,
+             self-play client (scripts/train_server_torch.py and
+             scripts/selfplay_client_torch.py run them)
   native     host-side C helpers (game replayer)
   tools      head-to-head matches
-  config, logging_utils, stats   option groups, loggers, win rates
+  config, logging_utils, stats, profiling
+             option groups and argparse registry, loggers, counters and
+             timers, torch.profiler traces with stage timers
 
 The two TPU kernels of the Go engine are hand-written CUDA here
 (`csrc/go_libs.cu`, wrapped by `env/go/kernels.py`); `_build.py` builds

@@ -1,0 +1,85 @@
+"""Model-family registry: counterpart of `elf_tpu/models/registry.py` (the
+reference's `Models = {name: [Model, Method]}` mapping and `load_env`
+composition, `df_model3.py:310`, `rlpytorch/model_loader.py:192`).
+
+Each entry pairs a network with its training loss:
+  df_kl     PolicyValueNet + mcts_prediction_loss     (AlphaZero training)
+  df_pred   PolicyValueNet + multiple_prediction_loss (supervised moves)
+  df_policy PolicyNet      + multiple_prediction_loss (policy-only CNN)
+
+`PolicyNet` (`models/policy_net.py`) and the df-25 features are not ported
+yet, so the df_policy entry has no network class, and `make_trainer`
+raises NotImplementedError for df_policy and for `use_df_feature`.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Optional
+
+from elf_tpu_torch.device import DeviceLike
+from elf_tpu_torch.models.resnet import ModelConfig, PolicyValueNet
+from elf_tpu_torch.training.loss import (
+    mcts_prediction_loss,
+    multiple_prediction_loss,
+)
+
+
+class ModelFamily(NamedTuple):
+    model_cls: Optional[type]      # None: the network is not ported yet
+    config_cls: Optional[type]
+    loss_fn: Callable
+    feature_set: str  # "agz" (18 planes) or "df" (25 planes)
+
+
+MODELS: Dict[str, ModelFamily] = {
+    "df_kl": ModelFamily(PolicyValueNet, ModelConfig, mcts_prediction_loss, "agz"),
+    "df_pred": ModelFamily(
+        PolicyValueNet, ModelConfig, multiple_prediction_loss, "agz"
+    ),
+    "df_policy": ModelFamily(None, None, multiple_prediction_loss, "df"),
+}
+
+
+def get_model_family(name: str) -> ModelFamily:
+    if name not in MODELS:
+        raise KeyError(f"unknown model family '{name}'; have {sorted(MODELS)}")
+    return MODELS[name]
+
+
+def family_feature_set(name: str, use_df_feature: bool = False) -> str:
+    """The feature set a family trains/plays on ('agz' or 'df'); the
+    --use_df_feature flag upgrades agz families to df-25."""
+    fam = get_model_family(name)
+    return "df" if (fam.feature_set == "df" or use_df_feature) else "agz"
+
+
+def make_trainer(name: str, board_size: int, to, use_df_feature: bool = False,
+                 device: DeviceLike = "cuda"):
+    """Model-family name + parsed TrainOptions -> (trainer, train_mode,
+    feature_set), as the JAX `make_trainer`:
+      df_kl   -> Trainer + "mcts"    (AlphaZero MCTSPrediction loss)
+      df_pred -> Trainer + "offline" (supervised MultiplePrediction; the
+                 port's LearnerRunner raises on it until
+                 training/offline.py is ported)."""
+    fam = get_model_family(name)
+    if fam.model_cls is None:
+        raise NotImplementedError(
+            f"model family '{name}': models/policy_net.py is not ported yet "
+            "(ROADMAP Queue 1, secondary pieces)")
+    feature_set = family_feature_set(name, use_df_feature)
+    if feature_set == "df":
+        raise NotImplementedError(
+            "use_df_feature: the df-25 features are not ported yet "
+            "(ROADMAP Queue 1, df-25 features)")
+    from elf_tpu_torch.training.trainer import Trainer
+
+    cfg = ModelConfig(
+        board_size=board_size,
+        num_planes=18,
+        num_block=to.num_block,
+        dim=to.dim,
+        bn_momentum=to.bn_momentum,
+        use_bf16=to.bf16,
+    )
+    train_mode = "mcts" if fam.loss_fn is mcts_prediction_loss else "offline"
+    return Trainer(cfg, to, device=device), train_mode, feature_set

@@ -11,7 +11,8 @@ search per ply:
    game drew its never-resign flag (game_utils.h:15);
  - env step + termination (two passes / max moves / superko).
 
-Finished games become protocol Records and their boards restart in place.
+Finished games become protocol Records and their boards restart in place;
+`apply_ts_options` takes the search options a server sends.
 Not ported yet (each raises NotImplementedError): persistent trees, the
 host-chunked search (`max_batches_per_call`), SGF preload and SGF dumps,
 and mesh sharding.
@@ -170,6 +171,23 @@ class SelfplayActor:
         self.active_boards = (
             n if n is not None and 0 <= n < self.cfg.batch else None
         )
+
+    def apply_ts_options(self, ts) -> bool:
+        """Apply server-sent MCTS options (a records.TSOptions inside
+        ModelPair, model_pair.h:10): rollout budget, noise, puct, pick
+        method.  Returns True when the search configuration changed."""
+        if ts.persistent_tree:
+            raise NotImplementedError(
+                "TSOptions.persistent_tree: persistent trees are not ported "
+                "yet (ROADMAP Queue 1, MCTS/actor options)")
+        new_mcfg = dataclasses.replace(
+            self.mcts_cfg, komi=self.cfg.komi, **ts.as_mcts_kwargs()
+        )
+        if new_mcfg == self.mcts_cfg:
+            return False
+        check_supported(new_mcfg)
+        self.mcts_cfg = new_mcfg
+        return True
 
     def finished_all(self) -> bool:
         n = self.cfg.num_games_per_thread
