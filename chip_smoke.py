@@ -5,13 +5,14 @@
 
 Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the CUDA kernels from `elf_tpu_torch/csrc/` with nvcc;
+  2. build the CUDA kernels from `elf_tpu_torch/csrc/` with nvcc, and the
+     host C code there (the game replayer, the ladder reader);
   3. kernels: both designs of each kernel (the union-find kernels the
      engine launches and the first port's round-based ones, kept as the
      yardstick) against the plain PyTorch version on the card (19x19 and
      9x9, B in {1, 5, 32, 130, 4096}, random boards, the serpentine chain,
      actions with passes, negatives and occupied points), exact; then at
-     the timed 19x19 shapes (mid-game boards at B = 32, 1024 and 4096,
+     the timed 19x19 shapes (mid-game boards at B = 1, 32, 1024 and 4096,
      serpentine chains at B = 1024) checked again and timed in turns
      (rounds, union-find, union-find, rounds): device time per launch by
      CUDA-graph replay, the profiler's kernel time beside it, the host
@@ -25,7 +26,9 @@ Phases:
      to check it legal and the boards equal;
   5. records: 9x9 games with a seeded small net until move_cutoff = 20;
      every Record survives a JSON round trip and replays on the host to
-     the boards the actor played;
+     the boards the actor played; then the same with persistent search
+     trees, a 10-move SGF preload (the first golden 9x9 game) and SGF
+     dumps, each dump parsed back to its record's moves;
   6. train: the learner at full width (19x19, 20 blocks, 256 channels, bf16
      compute, fp32 master weights), all on the card.  Self-play with the
      committed weights (B = 32, 16 rollouts, move_cutoff = 8, launch
@@ -54,16 +57,32 @@ Phases:
      exit summary: games, journaled records, stage timers, peak memory and,
      in each client, the liberty kernels' launch counts (set to 0 just
      before its play loop) which must both be positive;
-  8. profile: one more slice move under torch.profiler, device time by
+  8. play: the play surface at B = 1 with the committed weights.
+     `scripts/gtp_console_torch.py` (400 rollouts in batches of 8,
+     persistent trees) answers a scripted game (play, genmove, the ladder
+     extension, showboard, undo, final_score); no answer may be an error,
+     the engine's moves must replay legally on the host, every search
+     must start from exactly the visits the earlier tree held below the
+     moves played since (the third genmove, after the engine's own move,
+     from some), and both
+     kernels' launch counts (set to 0 when the console starts) must be
+     the counts the search implies.  `scripts/analysis_torch.py` (200
+     rollouts) analyses four positions of a golden 19x19 game after a
+     40-move preload, writing four tree dumps, with the same launch
+     check.  Each process's exit summary gives seconds per genmove or
+     position, rollouts/s, carried visits and peak memory;
+  9. profile: one more slice move under torch.profiler, device time by
      kernel group, with its own launch counts.
 
-Prints the card's nvidia-smi line, one JSON line describing the kernels
-(`launches` is the slice's count, `launches_train` and `launches_fleet`
-those of the train and fleet phases), and last `{"ok": true, "device":
-{...}}`.  Exits non-zero, before printing any result, when CUDA is
+The kernel phase times B = 1 too, the batch of the play surface.  Prints
+the card's nvidia-smi line, one JSON line describing the kernels
+(`launches` is the slice's count, `launches_train`, `launches_fleet` and
+`launches_play` those of the train, fleet and play phases), and last
+`{"ok": true, "device": {...}}`.  Exits non-zero, before printing any result, when CUDA is
 unavailable or the port is not beside this file.
 A copy of the numbers goes to chiprun_out/chip_smoke.json, the fleet's
-logs to chiprun_out/fleet/.
+logs to chiprun_out/fleet/, the play processes' output and tree dumps to
+chiprun_out/play/.
 """
 
 from __future__ import annotations
@@ -93,6 +112,8 @@ TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED, TRAIN_FIXED, TRAIN_COOLDOWN = \
 # candidate, and the time the first eval decision may take
 FLEET_CLIENTS, FLEET_B, FLEET_ROLLOUTS, FLEET_MINIBATCH = 2, 32, 16, 4
 FLEET_INIT, FLEET_EVAL_GAMES, FLEET_DEADLINE_S = 32, 8, 600
+# the play surface: rollouts per genmove and per analysed position
+PLAY_ROLLOUTS, ANALYSIS_ROLLOUTS = 400, 200
 
 
 def log(msg: str) -> None:
@@ -269,8 +290,8 @@ def bytes_moved(name: str, B: int, n2: int) -> int:
 
 
 # The timed shapes, all 19x19: (boards, B).
-TIMED = (("mid-game", SLICE_B), ("mid-game", 1024), ("mid-game", 4096),
-         ("serpentine", 1024))
+TIMED = (("mid-game", 1), ("mid-game", SLICE_B), ("mid-game", 1024),
+         ("mid-game", 4096), ("serpentine", 1024))
 
 
 def kernel_phase(rng) -> dict:
@@ -1065,19 +1086,31 @@ def fleet_phase(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def record_phase() -> dict:
+def golden_actions(name: str, n: int):
+    """The first `n` actions of the first game of a golden trajectory."""
+    import gzip
+
+    with gzip.open(ROOT / "tests" / "golden" / f"{name}.jsonl.gz", "rt") as f:
+        rec = json.loads(f.readline())
+    actions = rec["actions"]
+    if isinstance(actions, str):
+        actions = json.loads(actions)
+    return [int(a) for a in actions[:n]]
+
+
+def record_run(net, size: int, B: int, cutoff: int, preload=(), **opts):
+    """9x9 games to `move_cutoff`; every Record survives a JSON round trip
+    and replays (after the preloaded moves) to the board the actor
+    played.  Returns the records."""
     from elf_tpu_torch.env.go.coords import sgf_string_to_moves
-    from elf_tpu_torch.models.resnet import ModelConfig, build_model, eval_fn_builder
+    from elf_tpu_torch.models.resnet import eval_fn_builder
     from elf_tpu_torch.search.mcts import MCTSConfig
     from elf_tpu_torch.selfplay.actor import ActorConfig, SelfplayActor
     from elf_tpu_torch.selfplay.records import Record
 
-    size, B, cutoff = 9, 8, 20
-    net = build_model(ModelConfig(board_size=size, num_block=2, dim=32),
-                      "cuda", seed=1)
     actor = SelfplayActor(
         ActorConfig(board_size=size, batch=B, never_resign_prob=1.0,
-                    move_cutoff=cutoff),
+                    move_cutoff=cutoff, **opts),
         MCTSConfig(num_rollouts=16, rollouts_per_batch=4, root_epsilon=0.25,
                    root_alpha=0.3),
         eval_fn_builder, seed=2, device="cuda",
@@ -1093,16 +1126,213 @@ def record_phase() -> dict:
             moves = sgf_string_to_moves(r.result.content, size)
             if len(moves) != r.result.num_move or len(r.result.values) != len(moves):
                 fail("a Record's move, value and move-count fields disagree")
-            prefix = replay_is_legal([moves[:-1]], size)
-            replay_is_legal([moves], size)
+            prefix = replay_is_legal([list(preload) + moves[:-1]], size)
+            replay_is_legal([list(preload) + moves], size)
             if not torch.equal(prefix[0], before[r.thread_id]):
                 fail("a Record does not replay to the board the actor played")
         records.extend(new)
     if len(records) < B:
         fail(f"only {len(records)} of {B} games emitted records")
-    log(f"records: {len(records)} records at 9x9, each round-trips through "
+    return records
+
+
+def record_phase() -> dict:
+    """Records at 9x9, then the same with persistent trees, an SGF preload
+    and SGF dumps: every dump parses back to its record's moves."""
+    import shutil
+
+    from elf_tpu_torch.env.go.coords import sgf_string_to_moves
+    from elf_tpu_torch.models.resnet import ModelConfig, build_model
+    from elf_tpu_torch.sgf import game_from_moves, parse_sgf, serialize_sgf
+
+    size, B, cutoff = 9, 8, 20
+    net = build_model(ModelConfig(board_size=size, num_block=2, dim=32),
+                      "cuda", seed=1)
+    plain = record_run(net, size, B, cutoff)
+    log(f"records: {len(plain)} records at 9x9, each round-trips through "
         "JSON and replays to the actor's boards")
-    return {"records": len(records)}
+
+    run_dir = ROOT / "build" / "chip_smoke_records"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    preload = golden_actions("ref_traj_9", 10)
+    sgf = run_dir / "preload.sgf"
+    sgf.write_text(serialize_sgf(game_from_moves(preload, size)))
+    played = record_run(net, size, B, cutoff, preload=preload,
+                        persistent_tree=True, preload_sgf=str(sgf),
+                        dump_record_prefix=str(run_dir / "game"))
+    for r in played:
+        dumps = list(run_dir.glob(f"game-{r.thread_id}-{r.seq}-*.sgf"))
+        if len(dumps) != 1:
+            fail(f"{len(dumps)} SGF dumps for board {r.thread_id} game {r.seq}")
+        game = parse_sgf(dumps[0].read_text())
+        if [m for _, m in game.main_moves()] != sgf_string_to_moves(
+                r.result.content, size):
+            fail(f"the SGF dump {dumps[0].name} differs from its record")
+    log(f"records: {len(played)} more with persistent trees, a 10-move SGF "
+        "preload and SGF dumps: each replays after the preload, and each "
+        "dump parses back to its record's moves")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return {"records": len(plain), "records_play_options": len(played)}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the play surface (GTP console and SGF analysis at B = 1)
+# ---------------------------------------------------------------------------
+
+
+def gtp_session(card: str) -> dict:
+    """scripts/gtp_console_torch.py at 19x19 20b256c with persistent trees:
+    a scripted game whose engine moves must replay legally."""
+    from elf_tpu_torch.env.go.coords import gtp_to_flat
+
+    commands = [
+        "protocol_version", "boardsize 19", "clear_board", "komi 7.5",
+        "play B Q16", "genmove W", "play B D4", "genmove W", "genmove B",
+        "elf-ladder B C3", "showboard", "undo", "final_score", "quit",
+    ]
+    cmd = [sys.executable, str(ROOT / "scripts/gtp_console_torch.py"),
+           "--load", str(ROOT / "runs/prove19/export-best.bin"),
+           "--board_size", "19", "--num_block", "20", "--dim", "256",
+           "--num_rollouts", str(PLAY_ROLLOUTS), "--rollouts_per_batch",
+           str(SLICE_PER_BATCH), "--persistent_tree", "true", "--seed", "1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, input="\n".join(commands) + "\n", cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
+    wall_s = time.perf_counter() - t0
+    (ROOT / "chiprun_out" / "play").mkdir(parents=True, exist_ok=True)
+    (ROOT / "chiprun_out" / "play" / "gtp.log").write_text(
+        proc.stdout + "\n----- stderr -----\n" + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"play: the GTP console exited with {proc.returncode}\n"
+             f"{proc.stderr[-3000:]}")
+    answers = [a for a in proc.stdout.split("\n\n") if a.strip()]
+    if len(answers) != len(commands):
+        fail(f"play: {len(answers)} answers to {len(commands)} commands\n"
+             f"{proc.stdout}")
+    for c, a in zip(commands, answers):
+        if a.startswith("?"):
+            fail(f"play: '{c}' answered '{a}'")
+    reply = dict(zip(commands, answers))
+    engine_moves = [answers[i][2:] for i, c in enumerate(commands)
+                    if c.startswith("genmove")]
+    if "resign" in engine_moves:
+        fail(f"play: the engine resigned in the opening: {engine_moves}")
+    game = ["Q16", engine_moves[0], "D4", engine_moves[1], engine_moves[2]]
+    replay_is_legal([[gtp_to_flat(v, 19) for v in game]], 19)
+    summ = json.loads(proc.stderr.strip().splitlines()[-1])
+    # tree reuse: every search finds on its root's edges exactly the visits
+    # the earlier tree held below the move played into that root, and the
+    # third genmove, which follows the engine's own move, starts from some
+    # (the second follows the human's D4: its carry is what the first
+    # search spent there, which the weights decide)
+    carried, expect = summ["carried_visits"], summ["expected_carry"]
+    if len(carried) != 3 or carried != expect:
+        fail(f"play: carried-over root visits {carried}, the earlier trees "
+             f"held {expect} below the played moves")
+    if carried[2] <= 0:
+        fail(f"play: carried-over root visits {carried}: the third genmove "
+             "must start from the subtree of the engine's own move")
+    # from the code: every rollout steps the engine once (step_analysis),
+    # every played move once more; analyze_libs runs for each play's
+    # legality check and for each search whose root is not expanded yet
+    plays = sum(c.startswith("play") for c in commands)
+    expected = {
+        "step_analysis": (summ["rollouts_per_search"] * summ["searches"]
+                          + plays + summ["genmoves"]),
+        "analyze_libs": plays + sum(not r for r in summ["root_reused"]),
+    }
+    launches = summ["kernel_launches"]
+    for name, n in expected.items():
+        if launches[name] != n:
+            fail(f"play: GTP {name}: {launches[name]} launches, expected {n}")
+    genmove_s = summ["genmove_s"]
+    log(f"play: GTP 19x19 20b256c, {PLAY_ROLLOUTS} rollouts in batches of "
+        f"{SLICE_PER_BATCH}, persistent trees: moves {game}, score "
+        f"{reply['final_score'][2:]}, ladder read {reply['elf-ladder B C3']!r}")
+    log(f"play: genmove seconds: first (warm-up) {genmove_s[0]:.3f}, then "
+        f"{', '.join(f'{t:.3f}' for t in genmove_s[1:])}; "
+        f"{summ['rollouts_per_s']:.1f} rollouts/s after the first; carried "
+        f"root visits {carried} (held below the played moves: {expect}); "
+        f"root reused {summ['root_reused']}")
+    log(f"play: GTP launches {launches} (expected {expected}), peak memory "
+        f"{summ['peak_memory_bytes'] / 2 ** 30:.3f} GiB, process wall "
+        f"{wall_s:.1f} s, on {card}")
+    return dict(summ, commands=commands, answers=answers, game=game,
+                wall_s=wall_s, expected_launches=expected)
+
+
+def analysis_session(card: str) -> dict:
+    """scripts/analysis_torch.py on a 19x19 SGF of a golden game: four
+    positions after a 40-move preload, with tree dumps."""
+    import shutil
+
+    from elf_tpu_torch.sgf import game_from_moves, serialize_sgf
+
+    play_dir = ROOT / "build" / "play"
+    shutil.rmtree(play_dir, ignore_errors=True)
+    play_dir.mkdir(parents=True)
+    sgf = play_dir / "golden19.sgf"
+    sgf.write_text(serialize_sgf(game_from_moves(
+        golden_actions("ref_traj_19", 60), 19)))
+    cmd = [sys.executable, str(ROOT / "scripts/analysis_torch.py"),
+           "--load", str(ROOT / "runs/prove19/export-best.bin"),
+           "--board_size", "19", "--num_block", "20", "--dim", "256",
+           "--preload_sgf", str(sgf), "--preload_sgf_move_to", "40",
+           "--follow_sgf", "--max_moves", "4", "--num_rollouts",
+           str(ANALYSIS_ROLLOUTS), "--rollouts_per_batch",
+           str(SLICE_PER_BATCH), "--dump_record_prefix",
+           str(play_dir / "tree"), "--verbose", "--seed", "1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    wall_s = time.perf_counter() - t0
+    (ROOT / "chiprun_out" / "play" / "analysis.log").write_text(
+        proc.stdout + "\n----- stderr -----\n" + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"play: the analysis exited with {proc.returncode}\n"
+             f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    reports = [l for l in lines if " suggest " in l]
+    if len(reports) != 4 or not lines[-1].startswith("final_score "):
+        fail(f"play: analysis printed\n{proc.stdout}")
+    trees = sorted(play_dir.glob("tree_0_*.tree"))
+    if [t.name for t in trees] != [f"tree_0_{p}.tree" for p in range(40, 44)] \
+            or any(t.stat().st_size == 0 for t in trees):
+        fail(f"play: tree dumps {[t.name for t in trees]}")
+    for t in trees:
+        shutil.copy(t, ROOT / "chiprun_out" / "play" / t.name)
+    summ = json.loads(proc.stderr.strip().splitlines()[-1])
+    expected = {
+        "step_analysis": (summ["preloaded_moves"] + summ["searches"]
+                          * (summ["rollouts_per_search"] + 1)),
+        "analyze_libs": sum(not r for r in summ["root_reused"]),
+    }
+    launches = summ["kernel_launches"]
+    for name, n in expected.items():
+        if launches[name] <= 0 or launches[name] != n:
+            fail(f"play: analysis {name}: {launches[name]} launches, "
+                 f"expected {n}")
+    pos_s = summ["position_s"]
+    log(f"play: analysis 19x19 20b256c, {ANALYSIS_ROLLOUTS} rollouts: "
+        f"seconds per position: first (warm-up) {pos_s[0]:.3f}, then "
+        f"{', '.join(f'{t:.3f}' for t in pos_s[1:])}; "
+        f"{summ['rollouts_per_s']:.1f} rollouts/s after the first; launches "
+        f"{launches}; peak memory {summ['peak_memory_bytes'] / 2 ** 30:.3f} "
+        f"GiB, on {card}")
+    for l in lines:
+        log(f"play:   {l[:150]}")
+    shutil.rmtree(play_dir, ignore_errors=True)
+    return dict(summ, reports=lines, wall_s=wall_s,
+                expected_launches=expected)
+
+
+def play_phase(card: str) -> dict:
+    gtp = gtp_session(card)
+    analysis = analysis_session(card)
+    return {"gtp": gtp, "analysis": analysis, "launches": {
+        k: gtp["kernel_launches"][k] + analysis["kernel_launches"][k]
+        for k in ("step_analysis", "analyze_libs")}}
 
 
 # ---------------------------------------------------------------------------
@@ -1133,6 +1363,10 @@ def main() -> int:
         if any(w in line for w in ("entry function", "registers", "spill",
                                    "smem")):
             log(f"build: {line.strip()}")
+    for name in ("replayer", "ladder"):     # the host C code
+        t0 = time.perf_counter()
+        path, _ = _build.build(name)
+        log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
 
     result = {"card": card, "kind": kind}
     result["kernels"] = kernel_phase(np.random.default_rng(0))
@@ -1140,6 +1374,7 @@ def main() -> int:
     result["records"] = record_phase()
     result["train"] = train_phase(card)
     result["fleet"] = fleet_phase(card)
+    result["play"] = play_phase(card)
     result["profile"] = profile_phase(card, net)
 
     rows = []
@@ -1157,6 +1392,7 @@ def main() -> int:
             "launches": result["slice"]["launches"][name],
             "launches_train": result["train"]["launches"][name],
             "launches_fleet": result["fleet"]["launches"][name],
+            "launches_play": result["play"]["launches"][name],
             "max_abs_err": k["worst"][name], "ms": t["union-find"]["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
@@ -1165,7 +1401,8 @@ def main() -> int:
             "by_shape": {
                 f"{boards} B={B}": {
                     "ms": v["union-find"]["ms"], "rounds_ms": v["rounds"]["ms"],
-                    "bound_ms": v["bound_ms"]}
+                    "host_ms": v["union-find"]["host_ms"],
+                    "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"]}
                 for (n, boards, B), v in k["timings"].items() if n == name},
         })
     k["timings"] = {f"{n} {boards} B={B}": v

@@ -6,7 +6,7 @@ counterpart by the `tests/test_torch_*.py` suite:
   env/go     engine, state, AGZ-18 features, the liberty kernels' wrappers
   models     policy/value ResNet (inference and training), flax-msgpack
              checkpoints both ways, the model-family registry
-  search     array-of-trees MCTS
+  search     array-of-trees MCTS with tree reuse, the tree dump
   selfplay   lockstep actor, pair evaluator, records and wire types
   training   loss, trainer (optimizer, train / cooldown steps), replay
              buffer, batch pipeline, learner runner
@@ -14,7 +14,10 @@ counterpart by the `tests/test_torch_*.py` suite:
              manager, self-play and eval controllers, training server,
              self-play client (scripts/train_server_torch.py and
              scripts/selfplay_client_torch.py run them)
-  native     host-side C helpers (game replayer)
+  console    the play surface: GTP console, SGF analysis driver
+             (scripts/gtp_console_torch.py, scripts/analysis_torch.py)
+  sgf        SGF parser and writer
+  native     host-side C helpers (game replayer, ladder reader)
   tools      head-to-head matches
   config, logging_utils, stats, profiling
              option groups and argparse registry, loggers, counters and

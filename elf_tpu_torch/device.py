@@ -19,8 +19,8 @@ def require_cuda() -> None:
     """Raise unless a CUDA device is usable in this process."""
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "elf_tpu_torch: CUDA is not available; pass device='cpu' to run "
-            "the plain PyTorch path on the CPU"
+            "elf_tpu_torch: CUDA is not available; pass device='cpu' (the "
+            "scripts: --device cpu) to run the plain PyTorch path on the CPU"
         )
 
 

@@ -21,11 +21,13 @@ n = w = vl = 0); `prior` is bf16 and encodes legality (-1 illegal, 0
 legal-but-unevaluated); child / parent ids are int16, widened to long at
 every gather.  Unlike the JAX functions, these update the tree in place.
 
+Tree reuse across moves (`fresh_tree`, `advance_tree`, `reset_tree_where`,
+`run_mcts(init_tree=...)`) keeps the played line's subtree and its stats.
+
 Not ported yet (each raises NotImplementedError): the deferred-write
-overlay (`batched_writes="on"`), `feature_set="df"`, `eval_chunk`,
-`max_batches_per_call` and tree reuse (`init_tree`, `advance_tree`).
-The data-dependent loops (descent, ancestor walk, backprop, fixpoints)
-check their end condition on the host once per step.
+overlay (`batched_writes="on"`), `feature_set="df"`, `eval_chunk` and
+`max_batches_per_call`.  The data-dependent loops (descent, ancestor walk,
+backprop, fixpoints) check their end condition on the host once per step.
 """
 
 from __future__ import annotations
@@ -542,30 +544,141 @@ def gumbel_categorical(logits: torch.Tensor,
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=1)
 
 
+def fresh_tree(B: int, size: int, capacity: int, root_core: GoCore) -> Tree:
+    """An empty tree of `capacity` nodes (clamped to 32767) per board whose
+    unexpanded root is `root_core`: where a persistent-tree search starts."""
+    tree = _make_tree(B, size, capacity, root_core.stones.device)
+    root = torch.zeros((B,), dtype=torch.long, device=root_core.stones.device)
+    _write_core(tree, root, root_core, torch.ones_like(root, dtype=torch.bool))
+    tree.terminal[:, 0] = engine.is_terminal_core(root_core, size)
+    return tree
+
+
+def reset_tree_where(tree: Tree, mask: torch.Tensor, root_core: GoCore) -> Tree:
+    """Make the trees of boards where `mask` is True fresh one-node trees
+    rooted at `root_core` (their games restarted); in place."""
+    B, N = tree.stones.shape[:2]
+    size = math.isqrt(tree.stones.shape[2])
+    fresh = fresh_tree(B, size, N, root_core)
+    for have, new in zip(tree, fresh):
+        m = mask.reshape((B,) + (1,) * (have.ndim - 1))
+        have.copy_(torch.where(m, new, have))
+    return tree
+
+
+def _subtree_members(parent: torch.Tensor, new_root: torch.Tensor,
+                     alloc: torch.Tensor) -> torch.Tensor:
+    """bool [B, N]: the allocated nodes whose ancestor chain reaches
+    `new_root` [B] (-1: none), the root included.  Pointer jumping over
+    `parent` (ids < 0: no parent) for ceil(log2 N) + 1 rounds covers every
+    chain of up to N nodes with no host sync; the set equals the
+    parent-by-parent fixpoint's."""
+    B, N = parent.shape
+    dev = parent.device
+    anc = torch.where(parent >= 0, parent.long(), N)
+    anc = torch.cat([anc, torch.full((B, 1), N, dtype=torch.long, device=dev)],
+                    dim=1)                                  # N: no ancestor
+    hit = torch.zeros((B, N + 1), dtype=torch.bool, device=dev)
+    hit[:, :N] = (torch.arange(N, device=dev)[None, :] == new_root[:, None])
+    for _ in range(max(1, math.ceil(math.log2(N))) + 1):
+        hit = hit | torch.gather(hit, 1, anc)
+        anc = torch.gather(anc, 1, anc)
+    return hit[:, :N] & alloc
+
+
+def advance_tree(tree: Tree, actions: torch.Tensor, new_root_core: GoCore,
+                 size: int, capacity: int) -> Tree:
+    """Re-root each tree at the played action's child, keeping its subtree
+    and stats (tree_search_node.h:420 `treeAdvance`): node ids are compacted
+    in allocation order (parents before children, so the new root becomes
+    node 0), node-id-valued fields are remapped and the other nodes are
+    dropped.  A board whose action has no child gets a fresh one-node tree.
+    The new root's core is the stepped game's (`new_root_core`), and its
+    stored prior, never noised, becomes `root_raw_prior`.  Returns a new
+    Tree; `tree` is left as it was."""
+    B, N = tree.stones.shape[:2]
+    A = tree.prior.shape[2]
+    dev = tree.stones.device
+    rows = torch.arange(B, device=dev)
+    a = actions.long().clamp(0, A - 1)
+
+    new_root = tree.child[rows, 0, a].long()
+    alloc = torch.arange(N, device=dev)[None, :] < tree.count[:, None]
+    member = _subtree_members(tree.parent, new_root, alloc)
+    new_id = torch.cumsum(member.long(), dim=1) - 1        # valid on members
+
+    # node-id-valued fields point into the new numbering, -1 outside it
+    child = tree.child.long()
+    cs = child.clamp(0, N - 1)
+    r3 = rows[:, None, None]
+    child_remap = torch.where(member[r3, cs] & (child >= 0), new_id[r3, cs], -1)
+    parent = tree.parent.long()
+    ps = parent.clamp(0, N - 1)
+    r2 = rows[:, None]
+    parent_remap = torch.where(member[r2, ps] & (parent >= 0), new_id[r2, ps],
+                               -1)
+
+    # members scatter to their new ids, the rest into a dump slot at
+    # `capacity` that is cut off
+    pos = torch.where(member, new_id, capacity)
+    fills = {
+        "ko_point": -1, "ko_age": _KO_INACTIVE, "prior": -1.0, "child": -1,
+        "parent": -1, "parent_a": -1,
+    }
+
+    def scatter(name, arr):
+        out = torch.full((B, capacity + 1) + arr.shape[2:], fills.get(name, 0),
+                         dtype=arr.dtype, device=dev)
+        out[r2, pos] = arr
+        return out[:, :capacity]
+
+    src = tree._replace(child=child_remap.to(torch.int16),
+                        parent=parent_remap.to(torch.int16))
+    new = Tree(**{
+        name: scatter(name, arr)
+        for name, arr in src._asdict().items()
+        if name not in ("count", "root_raw_prior")
+    }, count=member.sum(dim=1, dtype=torch.int32).clamp(min=1),
+        root_raw_prior=torch.empty((B, A), device=dev))
+    new.root_raw_prior.copy_(new.prior[:, 0].float())
+    # the new root: the game's stepped core, detached from its old parent
+    _write_core(new, torch.zeros_like(rows), new_root_core,
+                torch.ones_like(rows, dtype=torch.bool))
+    new.parent[:, 0] = -1
+    new.parent_a[:, 0] = -1
+    new.terminal[:, 0] = engine.is_terminal_core(new_root_core, size)
+    return new
+
+
 def mcts_root_prepare(root_core: GoCore, root_hist: torch.Tensor,
                       root_hist_len: torch.Tensor, eval_fn: EvalFn,
-                      gen: torch.Generator, cfg: MCTSConfig,
-                      size: int) -> Tree:
-    """Phase 1: a fresh tree whose root is evaluated (+ Dirichlet noise)."""
+                      gen: torch.Generator, cfg: MCTSConfig, size: int,
+                      init_tree: Optional[Tree] = None) -> Tree:
+    """Phase 1: adopt `init_tree` (in place) or make a fresh tree, evaluate
+    the roots that are not expanded yet, and mix Dirichlet noise into every
+    root's raw prior.  A reused root keeps its value and its stored raw
+    prior, so noise never compounds across moves."""
     B = root_core.stones.shape[0]
     dev = root_core.stones.device
-    rows = torch.arange(B, device=dev)
-    root_ids = torch.zeros((B,), dtype=torch.long, device=dev)
+    if init_tree is None:
+        tree = fresh_tree(B, size, cfg.num_nodes, root_core)
+    else:
+        tree = init_tree
 
-    tree = _make_tree(B, size, cfg.num_nodes, dev)
-    _write_core(tree, root_ids, root_core,
-                torch.ones((B,), dtype=torch.bool, device=dev))
-    tree.terminal[:, 0] = engine.is_terminal_core(root_core, size)
-    root_terminal = tree.terminal[:, 0].clone()
-
-    root_legal = engine.legal_moves(root_core, size)
-    snaps, valid = _leaf_snapshots(tree, rows, root_ids, root_hist,
-                                   root_hist_len)
-    raw_prior, value = _evaluate_states(
-        _core_at(tree, rows, root_ids), root_terminal, snaps, valid,
-        root_legal, eval_fn, gen, cfg, size,
-        last_is_pass=root_core.last_move >= size * size,
-    )
+    fresh = (~tree.expanded[:, 0]).nonzero().squeeze(1)
+    raw_prior = tree.root_raw_prior.clone()
+    if fresh.numel():
+        root_ids = torch.zeros_like(fresh)
+        sub_core = GoCore(*(t[fresh] for t in root_core))
+        snaps, valid = _leaf_snapshots(tree, fresh, root_ids, root_hist,
+                                       root_hist_len)
+        prior_eval, value_eval = _evaluate_states(
+            _core_at(tree, fresh, root_ids), tree.terminal[fresh, 0], snaps,
+            valid, engine.legal_moves(sub_core, size), eval_fn, gen, cfg,
+            size, last_is_pass=sub_core.last_move >= size * size,
+        )
+        raw_prior[fresh] = prior_eval
+        tree.value[fresh, 0] = value_eval
     prior = raw_prior
     if cfg.root_epsilon > 0:
         legal = prior >= 0
@@ -575,7 +688,6 @@ def mcts_root_prepare(root_core: GoCore, root_hist: torch.Tensor,
         mixed = (1 - cfg.root_epsilon) * base + cfg.root_epsilon * noise
         prior = torch.where(legal, mixed, -1.0)
     tree.prior[:, 0] = prior.to(torch.bfloat16)
-    tree.value[:, 0] = value
     tree.expanded[:, 0] = True
     tree.root_raw_prior.copy_(raw_prior)
     return tree
@@ -692,18 +804,20 @@ def run_mcts(
 ) -> Tuple[MCTSResult, Tree]:
     """cfg.num_rollouts simulations for B boards in lockstep (prepare ->
     simulate -> finalize).  All tensors must lie on `device`, and `gen`
-    must be a torch.Generator of that device."""
+    must be a torch.Generator of that device.
+
+    `init_tree`: a tree from `fresh_tree` or `advance_tree`, searched on in
+    place (its stats carry over; fresh noise is mixed into the reused roots'
+    raw priors); the returned tree is that object."""
     dev = resolve_device(device)
     check_supported(cfg)
-    if init_tree is not None:
-        raise NotImplementedError("init_tree (persistent tree reuse)")
     if root_last_placed is not None:
         raise NotImplementedError("root_last_placed (df features)")
     if root_core.stones.device != dev:
         raise ValueError(f"root_core lies on {root_core.stones.device}, "
                          f"run_mcts was asked for {dev}")
     tree = mcts_root_prepare(root_core, root_hist, root_hist_len, eval_fn,
-                             gen, cfg, size)
+                             gen, cfg, size, init_tree=init_tree)
     m = max(1, cfg.rollouts_per_batch)
     n_batches = max(1, max(cfg.num_rollouts, cfg.white_num_rollouts) // m)
     mcts_simulate(tree, root_hist, root_hist_len, eval_fn, gen, cfg, size,

@@ -333,12 +333,13 @@ class TestWireProtocol:
         assert actor.mcts_cfg.num_rollouts == 16
         assert actor.mcts_cfg.c_puct == 0.85
         assert not actor.apply_ts_options(ts)     # same options: no change
-        # a server-sent persistent tree is refused, not ignored
-        with pytest.raises(NotImplementedError, match="persistent_tree"):
-            actor.apply_ts_options(
-                dataclasses.replace(ts, persistent_tree=True))
-        assert not actor.cfg.persistent_tree
+        # a server-sent persistent tree switches tree reuse on
+        assert actor.apply_ts_options(
+            dataclasses.replace(ts, persistent_tree=True))
+        assert actor.cfg.persistent_tree
         assert actor.mcts_cfg.num_rollouts == 16
+        assert not actor.apply_ts_options(
+            dataclasses.replace(ts, persistent_tree=True))
 
 
 class TestSubControllers:

@@ -159,10 +159,26 @@ def test_unported_search_options_raise(option):
     dict(persistent_tree=True), dict(preload_sgf="game.sgf"),
     dict(dump_record_prefix="games/g"),
 ])
-def test_unported_actor_options_raise(option):
-    with pytest.raises(NotImplementedError):
-        SelfplayActor(ActorConfig(**{**ACTOR, **option}), MCTSConfig(**SEARCH),
-                      eval_fn_builder, device="cpu")
+def test_unported_actor_options_raise(option, tmp_path, monkeypatch):
+    """The play surface's actor options (persistent trees, SGF preload, SGF
+    dumps) build an actor that plays; tests/test_torch_play.py holds them
+    against the JAX actor."""
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "game.sgf").write_text(f"(;SZ[{SIZE}];B[ee];W[cc])")
+    (tmp_path / "games").mkdir()
+    actor = SelfplayActor(
+        ActorConfig(**{**ACTOR, "batch": 2, "move_cutoff": 1, **option}),
+        MCTSConfig(**SEARCH), eval_fn_builder, device="cpu")
+    net = build_model(ModelConfig(board_size=SIZE, num_block=1, dim=8),
+                      device="cpu")
+    records = actor.play_moves(net, None, 1)
+    assert len(records) == 2
+    if "preload_sgf" in option:
+        assert int(actor._fresh_state.core.ply[0]) == 2
+    if "persistent_tree" in option:
+        assert actor.tree is not None
+    if "dump_record_prefix" in option:
+        assert len(list((tmp_path / "games").iterdir())) == 2
 
 
 @pytest.mark.parametrize("option", ["remat", "mesh", "feature_set=df",
