@@ -71,13 +71,37 @@ Phases:
      40-move preload, writing four tree dumps, with the same launch
      check.  Each process's exit summary gives seconds per genmove or
      position, rollouts/s, carried visits and peak memory;
-  9. profile: one more slice move under torch.profiler, device time by
+  9. production: the JAX package's production self-play search
+     (`scripts/production_selfplay_torch.py`: c_puct 0.85, virtual loss 5,
+     root noise, passes from ply 160, a random symmetry per leaf,
+     `eval_chunk` 2048, `batched_writes="on"`) on B = 1024 boards with the
+     committed weights at a cut budget: 64 rollouts in batches of 8, so
+     8192-leaf batches in 4 chunks, the search in 2 simulate calls of 4
+     batches; a warm-up move, then a timed one; exact launch counts over
+     both, every move legal on host replay; moves/s, rollouts/s, leaf
+     evaluations/s, seconds per simulate call, peak memory; then a third
+     move under torch.profiler (the device's busy share);
+ 10. remat: `ModelConfig(remat=True)` at 20b256c with the train phase's
+     optimizer: the step at the production batch 2048 (median of 5 by
+     CUDA events, positions/s, share of the bf16 bound of the useful
+     work, peak memory), remat against the plain step at batch 256 on
+     one batch, and one remat and one plain step from one state, which
+     must leave equal BN statistics and parameters within 1e-5;
+ 11. df: `make_trainer("df_kl", use_df_feature=True)` (25 planes, random
+     weights): 2 lockstep moves of B = 32 at 64 rollouts with df leaves
+     (exact launch counts, legal on replay), then one train step at batch
+     256 on a df batch from those games, with finite stats; then a fresh
+     df actor's first move with the df planes, `analyze_libs3` and the
+     leaf walk timed by synchronising wrappers, and its second move under
+     torch.profiler;
+ 12. profile: one more slice move under torch.profiler, device time by
      kernel group, with its own launch counts.
 
 The kernel phase times B = 1 too, the batch of the play surface.  Prints
 the card's nvidia-smi line, one JSON line describing the kernels
-(`launches` is the slice's count, `launches_train`, `launches_fleet` and
-`launches_play` those of the train, fleet and play phases), and last
+(`launches` is the slice's count, `launches_train`, `launches_fleet`,
+`launches_play`, `launches_production` and `launches_df` those of the
+train, fleet, play, production and df phases), and last
 `{"ok": true, "device": {...}}`.  Exits non-zero, before printing any result, when CUDA is
 unavailable or the port is not beside this file.
 A copy of the numbers goes to chiprun_out/chip_smoke.json, the fleet's
@@ -114,6 +138,13 @@ FLEET_CLIENTS, FLEET_B, FLEET_ROLLOUTS, FLEET_MINIBATCH = 2, 32, 16, 4
 FLEET_INIT, FLEET_EVAL_GAMES, FLEET_DEADLINE_S = 32, 8, 600
 # the play surface: rollouts per genmove and per analysed position
 PLAY_ROLLOUTS, ANALYSIS_ROLLOUTS = 400, 200
+# production self-play: boards, rollouts (cut from 1600), rollouts per
+# batch, simulation batches per simulate call
+PROD_B, PROD_ROLLOUTS, PROD_PER_BATCH, PROD_BATCHES_PER_CALL = 1024, 64, 8, 4
+# block remat: the production batch and the timed steps per measurement
+REMAT_BATCH, REMAT_TIMED = 2048, 5
+# df-25: lockstep moves of the slice's shape
+DF_MOVES = 2
 
 
 def log(msg: str) -> None:
@@ -481,28 +512,15 @@ _NN_KERNEL_WORDS = ("conv", "gemm", "xmma", "cudnn", "cutlass", "sm90",
                     "wgrad", "dgrad", "fprop")
 
 
-def profile_phase(card: str, net) -> dict:
-    """Where one slice move spends its time, after the other phases.
-
-    torch.profiler over one move at the slice's shape after a warm-up
-    move; device kernels are grouped as the two liberty kernels, the
-    convolutions and matrix products of the net, and everything else.
-    The launch counts are reset just before the profiled move and
-    reported as this phase's own."""
+def profile_move(actor, net, what: str, card: str) -> dict:
+    """One more move of `actor` under torch.profiler: wall time, the
+    device's busy time and share, device time by kernel group (the two
+    liberty kernels, the net's convolutions and matrix products,
+    everything else), and the launch counts of that move alone."""
     from torch.profiler import ProfilerActivity, profile
 
     from elf_tpu_torch.env.go import kernels
-    from elf_tpu_torch.models.resnet import eval_fn_builder
-    from elf_tpu_torch.search.mcts import MCTSConfig
-    from elf_tpu_torch.selfplay.actor import ActorConfig, SelfplayActor
 
-    actor = SelfplayActor(
-        ActorConfig(board_size=19, batch=SLICE_B, never_resign_prob=1.0),
-        MCTSConfig(num_rollouts=SLICE_ROLLOUTS,
-                   rollouts_per_batch=SLICE_PER_BATCH, root_epsilon=0.25),
-        eval_fn_builder, seed=0, device="cuda",
-    )
-    actor.play_moves(net, None, 1)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
@@ -537,8 +555,7 @@ def profile_phase(card: str, net) -> dict:
                device_busy_share=busy / wall_ms, groups_ms=groups,
                device_kernels=n_kernels, host_copies_and_syncs=syncs,
                top_kernels_ms=top, launches=launches)
-    log(f"profile: one move at 19x19 B {SLICE_B}, {SLICE_ROLLOUTS} rollouts: "
-        f"wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+    log(f"profile: {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
         f"({100 * busy / wall_ms:.1f}%), {n_kernels} kernels, {syncs} "
         f"host copies/syncs, liberty-kernel launches {launches}, on {card}")
     for k, v in groups.items():
@@ -546,6 +563,24 @@ def profile_phase(card: str, net) -> dict:
     for k, v in top:
         log(f"profile:   top {v:8.3f} ms  {k[:90]}")
     return out
+
+
+def profile_phase(card: str, net) -> dict:
+    """Where one slice move spends its time, after the other phases: a
+    warm-up move, then one move under torch.profiler (`profile_move`)."""
+    from elf_tpu_torch.models.resnet import eval_fn_builder
+    from elf_tpu_torch.search.mcts import MCTSConfig
+    from elf_tpu_torch.selfplay.actor import ActorConfig, SelfplayActor
+
+    actor = SelfplayActor(
+        ActorConfig(board_size=19, batch=SLICE_B, never_resign_prob=1.0),
+        MCTSConfig(num_rollouts=SLICE_ROLLOUTS,
+                   rollouts_per_batch=SLICE_PER_BATCH, root_epsilon=0.25),
+        eval_fn_builder, seed=0, device="cuda",
+    )
+    actor.play_moves(net, None, 1)
+    return profile_move(actor, net, f"one slice move at 19x19 B {SLICE_B}, "
+                        f"{SLICE_ROLLOUTS} rollouts", card)
 
 
 # ---------------------------------------------------------------------------
@@ -1336,6 +1371,339 @@ def play_phase(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: production self-play (B = 1024, the chunked production search)
+# ---------------------------------------------------------------------------
+
+
+def production_phase(card: str) -> dict:
+    """The JAX package's production self-play configuration at a cut
+    budget: 1024 boards, 64 rollouts in batches of 8 (8192-leaf batches
+    evaluated in 4 chunks of 2048), the search in 2 calls of 4 batches,
+    `batched_writes="on"`.  A warm-up move, then a timed one; the launch
+    counts are set to 0 just before the warm-up and read after the timed
+    move; every move replays legally on the host."""
+    sys.path.append(str(ROOT / "scripts"))
+    from production_selfplay_torch import production_actor, timed_move
+
+    from elf_tpu_torch.env.go import kernels
+    from elf_tpu_torch.models.resnet import ModelConfig, load_model
+
+    net = load_model(str(ROOT / "runs/prove19/export-best.bin"),
+                     ModelConfig(), "cuda")
+    actor = production_actor(PROD_B, PROD_ROLLOUTS, PROD_PER_BATCH,
+                             PROD_BATCHES_PER_CALL)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    warm_s, _ = timed_move(actor, net)
+    torch.cuda.reset_peak_memory_stats()
+    move_s, calls = timed_move(actor, net)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_move = {"step_analysis": PROD_ROLLOUTS + 1, "analyze_libs": 1}
+    for name, n in per_move.items():
+        if launches[name] != 2 * n:
+            fail(f"production: {name}: {launches[name]} launches, expected "
+                 f"{2 * n}")
+    if len(calls) != 2:
+        fail(f"production: {len(calls)} simulate calls per move, expected 2")
+    stones = replay_is_legal(actor.moves, 19)
+    if not torch.equal(stones, actor.state.core.stones):
+        fail("production: replayed boards differ from the actor's boards")
+    out = dict(
+        card=card, boards=PROD_B, rollouts=PROD_ROLLOUTS,
+        rollouts_per_batch=PROD_PER_BATCH, eval_chunk=2048,
+        max_batches_per_call=PROD_BATCHES_PER_CALL, batched_writes="on",
+        warmup_move_s=warm_s, move_s=move_s, simulate_s=calls,
+        moves_per_s=PROD_B / move_s,
+        rollouts_per_s=PROD_B * PROD_ROLLOUTS / move_s,
+        leaf_evals_per_s=PROD_B * (PROD_ROLLOUTS + 1) / move_s,
+        peak_memory_bytes=peak, launches=launches,
+    )
+    log(f"production: 19x19 20b256c B {PROD_B}, {PROD_ROLLOUTS} rollouts in "
+        f"batches of {PROD_PER_BATCH}, eval_chunk 2048, "
+        f"{len(calls)} simulate calls: warm-up move {warm_s:.3f} s, timed "
+        f"move {move_s:.3f} s: "
+        f"{out['moves_per_s']:.2f} moves/s, {out['rollouts_per_s']:.1f} "
+        f"rollouts/s, {out['leaf_evals_per_s']:.1f} leaf-evals/s, simulate "
+        f"calls {', '.join(f'{s:.3f}' for s in calls)} s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB, on {card}")
+    log(f"production: launches {launches} (expected "
+        f"{PROD_ROLLOUTS + 1} step_analysis + 1 analyze_libs per move); "
+        "every move replays legally")
+    out["profile"] = profile_move(
+        actor, net, f"a third production move at B {PROD_B}, "
+        f"{PROD_ROLLOUTS} rollouts", card)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: block remat at the production batch
+# ---------------------------------------------------------------------------
+
+
+def synthetic_batch(batch: int, seed: int):
+    """(features, pi, winner) on the card from a seed: binary planes,
+    Dirichlet-like policies, outcomes of +-1."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    feats = (torch.rand((batch, 19, 19, 18), generator=g, device="cuda")
+             < 0.3).float()
+    pi = torch.rand((batch, 362), generator=g, device="cuda") ** 8
+    pi = pi / pi.sum(dim=1, keepdim=True)
+    winner = torch.where(torch.rand((batch,), generator=g, device="cuda")
+                         < 0.5, -1.0, 1.0)
+    return feats, pi, winner
+
+
+def time_steps(trainer, state, batch, warmup: int, timed: int):
+    """Median ms per step by CUDA events over `timed` steps after
+    `warmup`, the peak memory over them, and the last stats."""
+    step = trainer.make_train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(warmup):
+        state, stats = step(state, *batch)
+    ms = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(timed):
+        start.record()
+        state, stats = step(state, *batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    stats = {k: float(v) for k, v in stats.items()}
+    if not all(np.isfinite(v) for v in stats.values()):
+        fail(f"remat: a stat is not finite: {stats}")
+    return float(np.median(ms)), ms, torch.cuda.max_memory_allocated(), stats
+
+
+def remat_phase(card: str) -> dict:
+    """`ModelConfig(remat=True)` at 19x19 20b256c: the step at the
+    production batch 2048, and at the train phase's 256 beside the plain
+    step (one batch, in turns plain, remat, remat, plain); then one remat
+    and one plain step from one state must leave equal BN statistics and
+    parameters within 1e-5."""
+    import dataclasses
+
+    from elf_tpu_torch.config import TrainOptions
+    from elf_tpu_torch.models.resnet import ModelConfig
+    from elf_tpu_torch.training.trainer import Trainer, load_checkpoint
+
+    weights = str(ROOT / "runs/prove19/export-best.bin")
+    plain_cfg = ModelConfig()
+    remat_cfg = dataclasses.replace(plain_cfg, remat=True)
+
+    def trainer_state(cfg, batch):
+        tr = Trainer(cfg, TrainOptions(batchsize=batch), device="cuda")
+        return tr, load_checkpoint(
+            weights, tr.init_state(torch.Generator().manual_seed(0)))
+
+    tr, state = trainer_state(remat_cfg, REMAT_BATCH)
+    big = synthetic_batch(REMAT_BATCH, 1)
+    med, ms, peak, stats = time_steps(tr, state, big, 2, REMAT_TIMED)
+    del tr, state, big
+    torch.cuda.empty_cache()
+    flops = train_step_flops(plain_cfg, REMAT_BATCH)
+    bound_ms = flops / BF16_FLOPS_PER_S * 1e3
+
+    small = synthetic_batch(TRAIN_BATCH, 2)
+    at_256 = {"plain": [], "remat": []}
+    for kind in ("plain", "remat", "remat", "plain"):
+        tr, state = trainer_state(remat_cfg if kind == "remat" else plain_cfg,
+                                  TRAIN_BATCH)
+        m, _, p, _ = time_steps(tr, state, small, 2, REMAT_TIMED)
+        at_256[kind].append((m, p))
+        del tr, state
+        torch.cuda.empty_cache()
+    plain_ms = float(np.mean([m for m, _ in at_256["plain"]]))
+    remat_ms = float(np.mean([m for m, _ in at_256["remat"]]))
+
+    # one step each from one state: the statistics move once per step
+    base_tr, base = trainer_state(plain_cfg, TRAIN_BATCH)
+    other = copy.deepcopy(base)
+    other.net.cfg = remat_cfg
+    remat_tr = Trainer(remat_cfg, base_tr.opts, device="cuda")
+    base_tr.make_train_step()(base, *small)
+    remat_tr.make_train_step()(other, *small)
+    for (n, a), (_, b) in zip(base.net.named_buffers(),
+                              other.net.named_buffers()):
+        if not torch.equal(a, b):
+            fail(f"remat: BN statistic {n} differs from the plain step's")
+    worst = max(float((a - b).detach().abs().max()) for a, b in
+                zip(base.net.parameters(), other.net.parameters()))
+    if worst > 1e-5:
+        fail(f"remat: parameters differ from the plain step's by {worst}")
+    del base_tr, base, other, remat_tr
+    torch.cuda.empty_cache()
+
+    out = dict(
+        card=card, batch=REMAT_BATCH, step_ms_median=med, step_ms=ms,
+        positions_per_s=REMAT_BATCH / med * 1e3, step_flops=flops,
+        bound_ms=bound_ms, bound_share=bound_ms / med,
+        peak_memory_bytes=peak, stats=stats,
+        at_256=dict(plain_ms=plain_ms, remat_ms=remat_ms,
+                    cost=remat_ms / plain_ms,
+                    plain_peak_bytes=max(p for _, p in at_256["plain"]),
+                    remat_peak_bytes=max(p for _, p in at_256["remat"]),
+                    turns=at_256),
+        max_param_diff=worst,
+    )
+    log(f"remat: 19x19 20b256c bf16, fp32 masters, remat, B {REMAT_BATCH}: "
+        f"step {med:.2f} ms median of {REMAT_TIMED} (CUDA events), "
+        f"{out['positions_per_s']:.1f} positions/s, "
+        f"{100 * bound_ms / med:.2f}% of the {bound_ms:.3f} ms bf16 bound "
+        f"({flops / 1e12:.3f} TFLOP of useful work), peak memory "
+        f"{peak / 2 ** 30:.2f} GiB, on {card}")
+    log(f"remat: B {TRAIN_BATCH}: plain {plain_ms:.2f} ms, remat "
+        f"{remat_ms:.2f} ms ({remat_ms / plain_ms:.3f}x), peak "
+        f"{out['at_256']['plain_peak_bytes'] / 2 ** 30:.2f} / "
+        f"{out['at_256']['remat_peak_bytes'] / 2 ** 30:.2f} GiB; one step "
+        "each from one state: BN statistics equal, parameters within "
+        f"{worst:.2e}, on {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: df-25 features through self-play and the learner
+# ---------------------------------------------------------------------------
+
+
+def df_phase(card: str) -> dict:
+    """`make_trainer("df_kl", use_df_feature=True)` at 19x19 20b256c (25
+    planes, random weights from a seed): DF_MOVES lockstep moves of B = 32
+    at 64 rollouts with df leaves, with the launch counts set to 0 just
+    before; the moves replay legally; the records feed a df pipeline and
+    one train step at batch 256 gives finite losses.  Then a fresh df
+    actor's first move with the df planes (`extract_df_parts`),
+    `analyze_libs3` within them and the leaf walk timed by wrappers that
+    synchronise the card around each call, and its second move under the
+    profiler."""
+    from elf_tpu_torch.config import ReplayOptions, TrainOptions
+    from elf_tpu_torch.env.go import engine, kernels
+    from elf_tpu_torch.models.registry import make_trainer
+    from elf_tpu_torch.models.resnet import eval_fn_builder
+    from elf_tpu_torch.search import mcts
+    from elf_tpu_torch.search.mcts import MCTSConfig
+    from elf_tpu_torch.selfplay.actor import ActorConfig, SelfplayActor
+    from elf_tpu_torch.training.pipeline import TrainingPipeline
+    from elf_tpu_torch.training.replay import ReplayBuffer
+
+    to = TrainOptions(batchsize=TRAIN_BATCH)
+    trainer, _, feature_set = make_trainer("df_kl", 19, to,
+                                           use_df_feature=True, device="cuda")
+    if feature_set != "df" or trainer.cfg.num_planes != 25:
+        fail(f"df: make_trainer gave {feature_set}, "
+             f"{trainer.cfg.num_planes} planes")
+    state = trainer.init_state(torch.Generator().manual_seed(7))
+    actor = SelfplayActor(
+        ActorConfig(board_size=19, batch=SLICE_B, never_resign_prob=1.0,
+                    move_cutoff=DF_MOVES),
+        MCTSConfig(num_rollouts=SLICE_ROLLOUTS,
+                   rollouts_per_batch=SLICE_PER_BATCH, root_epsilon=0.25,
+                   feature_set="df"),
+        eval_fn_builder, seed=0, device="cuda")
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    move_s, records = [], []
+    for _ in range(DF_MOVES):
+        t0 = time.perf_counter()
+        records += actor.play_moves(state.net, None, 1)
+        torch.cuda.synchronize()
+        move_s.append(time.perf_counter() - t0)
+    launches = kernels.launch_counts()
+    per_move = {"step_analysis": SLICE_ROLLOUTS + 1, "analyze_libs": 1}
+    for name, n in per_move.items():
+        if launches[name] != DF_MOVES * n:
+            fail(f"df: {name}: {launches[name]} launches, expected "
+                 f"{DF_MOVES * n}")
+    if len(records) != SLICE_B:
+        fail(f"df: {len(records)} records from {SLICE_B} games")
+    from elf_tpu_torch.env.go.coords import sgf_string_to_moves
+
+    games = [sgf_string_to_moves(r.result.content, 19) for r in records]
+    if any(len(m) != DF_MOVES for m in games):
+        fail("df: a game has not the moves it played")
+    replay_is_legal(games, 19)
+
+    pipeline = TrainingPipeline(
+        ReplayBuffer(ReplayOptions(num_reader=2, q_min_size=1,
+                                   q_max_size=1000), seed=0), 19, seed=0,
+        feature_set="df")
+    for r in records:
+        pipeline.insert_record(r)
+    hb = pipeline.sample_host_batch(TRAIN_BATCH)
+    if hb is None or hb.last_placed is None:
+        fail("df: the pipeline gave no df batch")
+    feats, pi, winner = pipeline.device_batch(hb, "cuda")
+    if tuple(feats.shape) != (TRAIN_BATCH, 19, 19, 25):
+        fail(f"df: batch planes of shape {tuple(feats.shape)}")
+    state, stats = trainer.make_train_step()(state, feats, pi, winner)
+    stats = {k: float(v) for k, v in stats.items()}
+    if not all(np.isfinite(v) for v in stats.values()):
+        fail(f"df: a stat of the train step is not finite: {stats}")
+    steady = move_s[1:]
+    mps = SLICE_B * len(steady) / sum(steady)
+
+    # a fresh actor's first move again, with the df work timed by wrappers
+    # that synchronise the card around each call (which slows the move),
+    # then one move under the profiler
+    actor = SelfplayActor(
+        ActorConfig(board_size=19, batch=SLICE_B, never_resign_prob=1.0),
+        actor.mcts_cfg, eval_fn_builder, seed=0, device="cuda")
+    spent = {"extract_df_parts": 0.0, "analyze_libs3": 0.0,
+             "_leaf_last_placed": 0.0}
+    originals = {}
+
+    def timed(module, name):
+        fn = originals[module, name] = getattr(module, name)
+
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+
+        setattr(module, name, wrapper)
+
+    timed(mcts, "extract_df_parts")
+    timed(engine, "analyze_libs3")
+    timed(mcts, "_leaf_last_placed")
+    try:
+        t0 = time.perf_counter()
+        actor.play_moves(state.net, None, 1)
+        torch.cuda.synchronize()
+        wrapped_move_s = time.perf_counter() - t0
+    finally:
+        for (module, name), fn in originals.items():
+            setattr(module, name, fn)
+    profile = profile_move(actor, state.net, f"a second df move at B "
+                           f"{SLICE_B}, {SLICE_ROLLOUTS} rollouts", card)
+    out = dict(
+        card=card, boards=SLICE_B, rollouts=SLICE_ROLLOUTS, moves=DF_MOVES,
+        move_s=move_s, moves_per_s=mps, wrapped_move_s=wrapped_move_s,
+        df_planes_ms=spent["extract_df_parts"] * 1e3,
+        analyze_libs3_ms=spent["analyze_libs3"] * 1e3,
+        leaf_walk_ms=spent["_leaf_last_placed"] * 1e3,
+        launches=launches, train_stats=stats, records=len(records),
+        profile=profile,
+    )
+    log(f"df: 19x19 20b256c, 25 planes, random weights, B {SLICE_B}, "
+        f"{SLICE_ROLLOUTS} rollouts: moves {', '.join(f'{s:.3f}' for s in move_s)}"
+        f" s, {mps:.2f} moves/s after the first, on {card}")
+    log(f"df: a first move with synchronised wrappers {wrapped_move_s:.3f} "
+        f"s: df planes {out['df_planes_ms']:.1f} ms (analyze_libs3 "
+        f"{out['analyze_libs3_ms']:.1f} ms of it), the leaf walk "
+        f"{out['leaf_walk_ms']:.1f} ms")
+    log(f"df: launches {launches}; every move replays legally; train step "
+        f"at batch {TRAIN_BATCH} on the df batch: loss/total "
+        f"{stats['loss/total']:.4f}, all stats finite")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1375,6 +1743,9 @@ def main() -> int:
     result["train"] = train_phase(card)
     result["fleet"] = fleet_phase(card)
     result["play"] = play_phase(card)
+    result["production"] = production_phase(card)
+    result["remat"] = remat_phase(card)
+    result["df"] = df_phase(card)
     result["profile"] = profile_phase(card, net)
 
     rows = []
@@ -1393,6 +1764,8 @@ def main() -> int:
             "launches_train": result["train"]["launches"][name],
             "launches_fleet": result["fleet"]["launches"][name],
             "launches_play": result["play"]["launches"][name],
+            "launches_production": result["production"]["launches"][name],
+            "launches_df": result["df"]["launches"][name],
             "max_abs_err": k["worst"][name], "ms": t["union-find"]["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None,

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import sys
 import time
+import traceback
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -77,6 +78,8 @@ def play_search(state: gostate.GoState, tree, eval_fn, gen: torch.Generator,
             size, init_tree=tree,
             game_hash_hist=(state.hash_hist_lo, state.hash_hist_hi,
                             state.nhash),
+            root_last_placed=(state.last_placed
+                              if cfg.feature_set == "df" else None),
             device=dev)
     sync(dev)
     entry["search_s"] = time.perf_counter() - t0
@@ -263,9 +266,11 @@ class GtpConsole:
         cmd, args = parts[0].lower(), parts[1:]
         try:
             ok, payload = self._dispatch(cmd, args)
-        except (ValueError, IndexError, KeyError) as e:
-            # malformed arguments (a bad vertex, size or number) answer
-            # "?"; anything else is a fault and ends the console
+        except Exception as e:  # noqa: BLE001
+            # any failure answers "? <message>" and the console goes on, as
+            # the JAX console does; a fault's traceback goes to stderr
+            if not isinstance(e, (ValueError, IndexError, KeyError)):
+                traceback.print_exc(file=sys.stderr)
             ok, payload = False, str(e)
         prefix = "=" if ok else "?"
         head = f"{prefix}{cmd_id}" if cmd_id else prefix

@@ -108,6 +108,48 @@ def analyze_libs(stones2d: torch.Tensor, size: int):
     return kernels.analyze_libs(stones2d)
 
 
+def analyze_libs3(stones2d: torch.Tensor, size: int):
+    """(lib_min, lib_max, lib_min2) int32 [B, N, N]: `analyze_libs`' fields
+    and the second-smallest distinct liberty of each chain (INF where it
+    has fewer than two), which tells chains with exactly 2 liberties from
+    those with 3 or more (the df planes, board_feature.cc
+    `getLibertyMap3binary`).  Plain PyTorch on every device, as in the
+    JAX package, where it is an XLA fixpoint and no Pallas kernel: the
+    same-colour propagation of `elf_tpu/env/go/engine.py:314` with one
+    host check per round."""
+    lm, lx = kernels._init_lib_fields(stones2d)
+    n = stones2d.shape[-1]
+    idx = torch.arange(n * n, dtype=torch.int32, device=stones2d.device)
+    idx = idx.reshape(n, n).expand(stones2d.shape)
+    empty = stones2d == EMPTY
+    # second-smallest adjacent empty point per stone
+    m2 = torch.full_like(lm, INF)
+    for dr, dc in _DIRS:
+        nbr = torch.where(shift(empty, dr, dc, False), shift(idx, dr, dc, 0),
+                          INF)
+        m2 = torch.where((nbr > lm) & (nbr < m2), nbr, m2)
+    m2 = torch.where(empty, INF, m2)
+    same = [(~empty) & (shift(stones2d, dr, dc, 0) == stones2d)
+            for dr, dc in _DIRS]
+    while True:
+        prev = (lm, lx, m2)
+        for (dr, dc), sm in zip(_DIRS, same):
+            nlm = shift(lm, dr, dc, INF)
+            # the two smallest distinct liberties of the union
+            new_min = torch.minimum(lm, nlm)
+            big = torch.maximum(lm, nlm)
+            cand2 = torch.where(big == new_min, INF, big)
+            new_m2 = torch.minimum(torch.minimum(m2, shift(m2, dr, dc, INF)),
+                                   cand2)
+            new_m2 = torch.where(new_m2 == new_min, INF, new_m2)
+            lx = torch.where(sm, torch.maximum(lx, shift(lx, dr, dc, -1)), lx)
+            lm = torch.where(sm, new_min, lm)
+            m2 = torch.where(sm, new_m2, m2)
+        if not bool(torch.stack([(a != b).any()
+                                 for a, b in zip(prev, (lm, lx, m2))]).any()):
+            return lm, lx, m2
+
+
 def step_core(core: GoCore, action: torch.Tensor, size: int
               ) -> Tuple[GoCore, StepInfo]:
     """Apply one action per board (flat idx, or N2 == pass), lockstep.

@@ -7,9 +7,9 @@ Each entry pairs a network with its training loss:
   df_pred   PolicyValueNet + multiple_prediction_loss (supervised moves)
   df_policy PolicyNet      + multiple_prediction_loss (policy-only CNN)
 
-`PolicyNet` (`models/policy_net.py`) and the df-25 features are not ported
-yet, so the df_policy entry has no network class, and `make_trainer`
-raises NotImplementedError for df_policy and for `use_df_feature`.
+`PolicyNet` (`models/policy_net.py`) is not ported yet, so the df_policy
+entry has no network class, and `make_trainer` raises NotImplementedError
+for it.
 """
 
 from __future__ import annotations
@@ -56,7 +56,8 @@ def family_feature_set(name: str, use_df_feature: bool = False) -> str:
 def make_trainer(name: str, board_size: int, to, use_df_feature: bool = False,
                  device: DeviceLike = "cuda"):
     """Model-family name + parsed TrainOptions -> (trainer, train_mode,
-    feature_set), as the JAX `make_trainer`:
+    feature_set), as the JAX `make_trainer` (25 input planes where the
+    feature set is df):
       df_kl   -> Trainer + "mcts"    (AlphaZero MCTSPrediction loss)
       df_pred -> Trainer + "offline" (supervised MultiplePrediction; the
                  port's LearnerRunner raises on it until
@@ -67,15 +68,11 @@ def make_trainer(name: str, board_size: int, to, use_df_feature: bool = False,
             f"model family '{name}': models/policy_net.py is not ported yet "
             "(ROADMAP Queue 1, secondary pieces)")
     feature_set = family_feature_set(name, use_df_feature)
-    if feature_set == "df":
-        raise NotImplementedError(
-            "use_df_feature: the df-25 features are not ported yet "
-            "(ROADMAP Queue 1, df-25 features)")
     from elf_tpu_torch.training.trainer import Trainer
 
     cfg = ModelConfig(
         board_size=board_size,
-        num_planes=18,
+        num_planes=25 if feature_set == "df" else 18,
         num_block=to.num_block,
         dim=to.dim,
         bn_momentum=to.bn_momentum,

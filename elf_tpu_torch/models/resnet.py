@@ -20,18 +20,27 @@ statistics; `net(x, train=True)` normalises with the batch statistics and
 updates the running ones, as flax's BatchNorm does (eps 1e-5, fast
 variance, biased batch variance in the running statistic).  `pi_fc`
 consumes the NHWC flatten of the policy planes, as the flax Dense does.
+
+`ModelConfig(remat=True)` recomputes each residual block in the backward
+pass (`torch.utils.checkpoint`, the counterpart of flax's `nn.remat`); the
+trunk's first layer and the heads keep their activations.  A training
+forward collects every BN layer's batch statistics and writes the running
+statistics once, after the forward: a recomputed block computes its
+statistics again but writes nothing, so they move once per step, as
+flax's `mutable=["batch_stats"]` moves them.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from elf_tpu_torch.device import DeviceLike, resolve_device
 
@@ -47,7 +56,8 @@ class ModelConfig:
     value_hidden: int = 256
     bn_momentum: float = 0.0   # torch convention (df_model3 default 0.0)
     use_bf16: bool = True
-    # recompute the residual blocks in the backward pass; not ported yet
+    # recompute the residual blocks in the backward pass (less activation
+    # memory for more operations; the batch-2048 train step needs it)
     remat: bool = False
 
     @property
@@ -79,21 +89,45 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(dim))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Running statistics, or with `train` the batch statistics, which
+        then also update the running ones."""
+        if not train:
+            return self._normalise(x.float(), self.running_mean,
+                                   self.running_var)
+        y, mean, var = self.batch_norm(x)
+        self.update_running(mean, var)
+        return y
+
+    def batch_norm(self, x: torch.Tensor):
+        """(y, mean, var): normalised with the batch statistics, which are
+        returned and not written."""
         x = x.float()
-        if train:
-            # flax `_compute_stats`: var = max(0, E[x^2] - E[x]^2), and the
-            # running statistic takes this biased batch variance
-            mean = x.mean(dim=(0, 2, 3))
-            var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-        else:
-            mean, var = self.running_mean, self.running_var
+        # flax `_compute_stats`: var = max(0, E[x^2] - E[x]^2), and the
+        # running statistic takes this biased batch variance
+        mean = x.mean(dim=(0, 2, 3))
+        var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+        return self._normalise(x, mean, var), mean, var
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+
+    def _normalise(self, x, mean, var):
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         y = (x - mean[:, None, None]) * mul[:, None, None]
         return y + self.bias[:, None, None]
+
+
+def _bn(bn: BatchNorm, x: torch.Tensor, stats: Optional[list]):
+    """`bn` on x: the running statistics where `stats` is None, else the
+    batch statistics, appended to `stats` as (mean, var)."""
+    if stats is None:
+        return bn(x)
+    y, mean, var = bn.batch_norm(x)
+    stats += [mean, var]
+    return y
 
 
 class Conv(nn.Module):
@@ -121,18 +155,19 @@ class ResBlock(nn.Module):
         self.conv2 = Conv(dim, dim, 3, dtype)
         self.bn2 = BatchNorm(dim, momentum)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False):
+        """(output, batch statistics): with `train` the four tensors
+        (mean1, var1, mean2, var2), which the caller writes; else ()."""
         dt = x.dtype
-        y = F.relu(self.bn1(self.conv1(x), train))
-        y = F.relu(self.bn2(self.conv2(y.to(dt)), train))
-        return F.relu(x + y.to(dt))
+        stats = [] if train else None
+        y = F.relu(_bn(self.bn1, self.conv1(x), stats))
+        y = F.relu(_bn(self.bn2, self.conv2(y.to(dt)), stats))
+        return F.relu(x + y.to(dt)), tuple(stats or ())
 
 
 class PolicyValueNet(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.remat:
-            raise NotImplementedError("ModelConfig.remat")
         self.cfg = cfg
         dt, m = cfg.compute_dtype, cfg.torch_bn_momentum
         self.init_conv = Conv(cfg.num_planes, cfg.dim, 3, dt)
@@ -151,18 +186,32 @@ class PolicyValueNet(nn.Module):
     def forward(self, x: torch.Tensor,
                 train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: [B, N, N, C] float32 -> (log_pi [B, A] f32, value [B] f32).
-        `train` selects the batch statistics and updates the running ones."""
+        `train` selects the batch statistics and updates the running ones,
+        once, after the forward; with `cfg.remat` it recomputes each block
+        in the backward pass."""
         dt = self.cfg.compute_dtype
         B = x.shape[0]
+        stats = [] if train else None
         h = x.permute(0, 3, 1, 2).to(dt)
-        h = F.relu(self.init_bn(self.init_conv(h), train)).to(dt)
+        h = F.relu(_bn(self.init_bn, self.init_conv(h), stats)).to(dt)
         for block in self.blocks:
-            h = block(h, train)
-        p = F.relu(self.pi_bn(self.pi_conv(h), train))
+            if train and self.cfg.remat:
+                h, bs = checkpoint(block, h, True, use_reentrant=False)
+            else:
+                h, bs = block(h, train)
+            if train:
+                stats += bs
+        p = F.relu(_bn(self.pi_bn, self.pi_conv(h), stats))
         p = p.permute(0, 2, 3, 1).reshape(B, -1)        # NHWC flatten
         log_pi = F.log_softmax(self.pi_fc(p), dim=-1)
-        v = F.relu(self.v_bn(self.v_conv(h), train)).reshape(B, -1)
+        v = F.relu(_bn(self.v_bn, self.v_conv(h), stats)).reshape(B, -1)
         v = self.v_fc2(F.relu(self.v_fc1(v)))
+        if train:
+            bns = [self.init_bn]
+            bns += [bn for blk in self.blocks for bn in (blk.bn1, blk.bn2)]
+            bns += [self.pi_bn, self.v_bn]
+            for bn, mean, var in zip(bns, stats[0::2], stats[1::2]):
+                bn.update_running(mean, var)
         return log_pi, torch.tanh(v[:, 0])
 
 

@@ -9,9 +9,12 @@ a lockstep tensor op over the B trees:
   expand   one child per tree per rollout by stepping the Go engine (the
            step's liberty analysis is the CUDA `step_analysis` kernel on
            the card);
-  evaluate one NN forward over all B * rollouts_per_batch leaves, with a
-           random D4 symmetry per leaf and the terminal Tromp-Taylor
-           shortcut;
+  evaluate one NN forward over all B * rollouts_per_batch leaves (or
+           sequential chunks of `eval_chunk` leaves), with a random D4
+           symmetry per leaf and the terminal Tromp-Taylor shortcut; the
+           leaf's planes are AGZ-18 (8 snapshots up the parent chain) or
+           df-25 (`feature_set="df"`: placement plies up the parent chain
+           from the game's `root_last_placed`);
   backprop visit counts and values up the parent chains; a leaf selected
            several times in one batch backprops once and removes all its
            virtual losses (tree_search.h:255).
@@ -24,16 +27,21 @@ every gather.  Unlike the JAX functions, these update the tree in place.
 Tree reuse across moves (`fresh_tree`, `advance_tree`, `reset_tree_where`,
 `run_mcts(init_tree=...)`) keeps the played line's subtree and its stats.
 
-Not ported yet (each raises NotImplementedError): the deferred-write
-overlay (`batched_writes="on"`), `feature_set="df"`, `eval_chunk` and
-`max_batches_per_call`.  The data-dependent loops (descent, ancestor walk,
-backprop, fixpoints) check their end condition on the host once per step.
+`batched_writes` takes "auto", "on" and "off", and every value runs the
+same direct writes: the JAX package's deferred-write overlay exists
+because every XLA scatter is a full-array pass, and both of its paths give
+the direct-write path's trees.  With `max_batches_per_call` `run_mcts`
+calls `mcts_simulate` in chunks of that many batches (the JAX actor's
+host-chunked search), each with its cumulative batch offset.  The
+data-dependent loops (descent, ancestor walk, backprop, fixpoints) check
+their end condition on the host once per step.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -43,6 +51,7 @@ from elf_tpu_torch.env.go import engine
 from elf_tpu_torch.env.go.engine import BLACK, GoCore
 from elf_tpu_torch.env.go.features import (
     extract_agz_from_snapshots,
+    extract_df_parts,
     inv_transform_policy,
 )
 
@@ -86,16 +95,10 @@ class MCTSConfig:
 
 
 def check_supported(cfg: MCTSConfig) -> None:
-    """Raise NotImplementedError for an option the port does not have yet."""
-    if cfg.feature_set != "agz":
-        raise NotImplementedError(f"feature_set={cfg.feature_set!r}")
-    if cfg.eval_chunk:
-        raise NotImplementedError("eval_chunk")
-    if cfg.max_batches_per_call:
-        raise NotImplementedError("max_batches_per_call")
-    if cfg.batched_writes == "on":
-        raise NotImplementedError("batched_writes='on' (deferred overlay)")
-    if cfg.batched_writes not in ("auto", "off"):
+    """Raise ValueError for an option value the search does not know."""
+    if cfg.feature_set not in ("agz", "df"):
+        raise ValueError(f"feature_set={cfg.feature_set!r}")
+    if cfg.batched_writes not in ("auto", "on", "off"):
         raise ValueError(f"batched_writes={cfg.batched_writes!r}")
     if cfg.pick_method not in ("most_visited", "prior", "uniform_random"):
         raise ValueError(f"pick_method={cfg.pick_method!r}")
@@ -437,21 +440,63 @@ def _leaf_snapshots(tree: Tree, rows: torch.Tensor, leaf: torch.Tensor,
     return torch.stack(snaps[::-1], dim=1), torch.stack(valid[::-1], dim=1)
 
 
-def _evaluate_states(core: GoCore, is_term: torch.Tensor, snaps, valid,
+def _leaf_last_placed(tree: Tree, rows: torch.Tensor, leaf: torch.Tensor,
+                      root_lp: torch.Tensor, size: int) -> torch.Tensor:
+    """int32 [K, n2]: per-point 1-based placement ply at `leaf` (the df
+    planes' history input, board.cc _infos[].last_placed).
+
+    The edge into a node X placed a stone at parent_a[X], at the 1-based
+    ply tree.ply[X].  Walking leaf -> root meets the latest placements
+    first, so the first write to a point wins, as the last placement wins
+    in forward play; below the root the game's `root_lp` [B, n2] fills
+    the rest."""
+    K = leaf.shape[0]
+    n2 = size * size
+    N = tree.stones.shape[1]
+    pts = torch.arange(n2, device=leaf.device)[None, :]
+    lp = torch.zeros((K, n2), dtype=torch.int32, device=leaf.device)
+    filled = torch.zeros((K, n2), dtype=torch.bool, device=leaf.device)
+    cur = leaf
+    active = torch.ones((K,), dtype=torch.bool, device=leaf.device)
+    while bool(active.any()):
+        safe = cur.clamp(0, N - 1)
+        a = tree.parent_a[rows, safe].long()
+        parent = tree.parent[rows, safe].long()
+        is_stone = active & (parent >= 0) & (a >= 0) & (a < n2)
+        onehot = (pts == a[:, None]) & is_stone[:, None] & ~filled
+        lp = torch.where(onehot, tree.ply[rows, safe].to(torch.int32)[:, None],
+                         lp)
+        filled |= onehot
+        active = active & (parent >= 0)
+        cur = torch.where(active, parent, cur)
+    return torch.where(filled, lp, root_lp[rows])
+
+
+def _draw_codes(K: int, gen: torch.Generator, cfg: MCTSConfig,
+                device) -> torch.Tensor:
+    """One D4 code per leaf: random with `rotation_flip`, else 0.  Drawn for
+    a whole simulation batch at once, so `eval_chunk` changes no draw."""
+    if cfg.rotation_flip:
+        return torch.randint(0, 8, (K,), generator=gen, device=device)
+    return torch.zeros((K,), dtype=torch.long, device=device)
+
+
+def _evaluate_states(core: GoCore, is_term: torch.Tensor, hist,
                      legal: torch.Tensor, eval_fn: EvalFn,
-                     gen: torch.Generator, cfg: MCTSConfig, size: int,
+                     codes: torch.Tensor, cfg: MCTSConfig, size: int,
                      last_is_pass: torch.Tensor):
     """Evaluate K gathered states: (prior [K, A] f32, value [K] black
     persp.), with pass gating (mcts.h post_nn_result +
-    remove_pass_if_dangerous) and the terminal TT shortcut."""
-    K = core.stones.shape[0]
+    remove_pass_if_dangerous) and the terminal TT shortcut.  `hist` is
+    (snaps, valid) for the AGZ planes, or the df planes' per-point
+    placement plies [K, n2]."""
     n2 = size * size
-    dev = core.stones.device
-    if cfg.rotation_flip:
-        codes = torch.randint(0, 8, (K,), generator=gen, device=dev)
+    if cfg.feature_set == "df":
+        ko_active = (core.ko_age == 0) & (core.ko_point >= 0)
+        feats = extract_df_parts(core.stones, core.to_play, core.ko_point,
+                                 ko_active, core.ply, hist, codes, size)
     else:
-        codes = torch.zeros((K,), dtype=torch.long, device=dev)
-    feats = extract_agz_from_snapshots(snaps, valid, core.to_play, codes, size)
+        feats = extract_agz_from_snapshots(*hist, core.to_play, codes, size)
     log_pi, value = eval_fn(feats, core.to_play)
     pi = inv_transform_policy(torch.exp(log_pi.float()), codes, size)
     value = value.float()
@@ -650,14 +695,24 @@ def advance_tree(tree: Tree, actions: torch.Tensor, new_root_core: GoCore,
     return new
 
 
+def _root_lp(root_last_placed: Optional[torch.Tensor], B: int, size: int,
+             device) -> torch.Tensor:
+    """The game's placement plies [B, n2] for df leaves (zeros if None)."""
+    if root_last_placed is not None:
+        return root_last_placed
+    return torch.zeros((B, size * size), dtype=torch.int32, device=device)
+
+
 def mcts_root_prepare(root_core: GoCore, root_hist: torch.Tensor,
                       root_hist_len: torch.Tensor, eval_fn: EvalFn,
                       gen: torch.Generator, cfg: MCTSConfig, size: int,
-                      init_tree: Optional[Tree] = None) -> Tree:
+                      init_tree: Optional[Tree] = None,
+                      root_last_placed: Optional[torch.Tensor] = None) -> Tree:
     """Phase 1: adopt `init_tree` (in place) or make a fresh tree, evaluate
     the roots that are not expanded yet, and mix Dirichlet noise into every
     root's raw prior.  A reused root keeps its value and its stored raw
-    prior, so noise never compounds across moves."""
+    prior, so noise never compounds across moves.  `root_last_placed`
+    [B, n2]: the game's placement plies, which df planes read."""
     B = root_core.stones.shape[0]
     dev = root_core.stones.device
     if init_tree is None:
@@ -670,12 +725,16 @@ def mcts_root_prepare(root_core: GoCore, root_hist: torch.Tensor,
     if fresh.numel():
         root_ids = torch.zeros_like(fresh)
         sub_core = GoCore(*(t[fresh] for t in root_core))
-        snaps, valid = _leaf_snapshots(tree, fresh, root_ids, root_hist,
-                                       root_hist_len)
+        if cfg.feature_set == "df":
+            hist = _root_lp(root_last_placed, B, size, dev)[fresh]
+        else:
+            hist = _leaf_snapshots(tree, fresh, root_ids, root_hist,
+                                   root_hist_len)
         prior_eval, value_eval = _evaluate_states(
-            _core_at(tree, fresh, root_ids), tree.terminal[fresh, 0], snaps,
-            valid, engine.legal_moves(sub_core, size), eval_fn, gen, cfg,
-            size, last_is_pass=sub_core.last_move >= size * size,
+            _core_at(tree, fresh, root_ids), tree.terminal[fresh, 0], hist,
+            engine.legal_moves(sub_core, size), eval_fn,
+            _draw_codes(fresh.numel(), gen, cfg, dev), cfg, size,
+            last_is_pass=sub_core.last_move >= size * size,
         )
         raw_prior[fresh] = prior_eval
         tree.value[fresh, 0] = value_eval
@@ -697,9 +756,19 @@ def mcts_simulate(tree: Tree, root_hist: torch.Tensor,
                   root_hist_len: torch.Tensor, eval_fn: EvalFn,
                   gen: torch.Generator, cfg: MCTSConfig, size: int,
                   n_batches: int, game_hash_hist=None,
-                  batch_offset: int = 0) -> Tree:
+                  batch_offset: int = 0,
+                  root_last_placed: Optional[torch.Tensor] = None) -> Tree:
     """Phase 2: `n_batches` simulation batches, each `rollouts_per_batch`
-    select/expand passes + one fused leaf evaluation + one backprop walk."""
+    select/expand passes + one fused leaf evaluation + one backprop walk.
+
+    `batch_offset`: the index of the first batch in the whole search (a
+    search run in several calls passes its cumulative count, so that the
+    per-player budgets of `white_num_rollouts` count across calls).  The
+    leaves of a batch are evaluated in one forward, or, where `eval_chunk`
+    divides the m * B leaves into more than one part, in sequential forwards
+    of `eval_chunk` leaves (the JAX condition, `elf_tpu/search/mcts.py:1297`);
+    their D4 codes are drawn for the whole batch first, so chunking changes
+    no draw."""
     B, N = tree.stones.shape[:2]
     dev = tree.stones.device
     rows = torch.arange(B, device=dev)
@@ -717,6 +786,11 @@ def mcts_simulate(tree: Tree, root_hist: torch.Tensor,
     earlier = torch.tril(torch.ones((m, m), dtype=torch.bool, device=dev),
                          -1)[:, :, None]
     flat_rows = rows.repeat(m)
+    c = cfg.eval_chunk
+    chunk = c if c and mB > c and mB % c == 0 else mB
+    df = cfg.feature_set == "df"
+    if df:
+        root_lp = _root_lp(root_last_placed, B, size, dev)
 
     for batch_idx in range(batch_offset, batch_offset + n_batches):
         active = None if budget is None else (batch_idx < budget)
@@ -729,14 +803,24 @@ def mcts_simulate(tree: Tree, root_hist: torch.Tensor,
         safe = leaves.reshape(mB).clamp(0, N - 1)
         flat_core = _core_at(tree, flat_rows, safe)
         flat_term = tree.terminal[flat_rows, safe]
-        snaps, valid = _leaf_snapshots(tree, flat_rows, safe, root_hist,
-                                       root_hist_len)
+        if df:
+            hist = _leaf_last_placed(tree, flat_rows, safe, root_lp, size)
+        else:
+            hist = _leaf_snapshots(tree, flat_rows, safe, root_hist,
+                                   root_hist_len)
         flat_legal = tree.prior[flat_rows, safe] >= 0
         flat_lip = tree.parent_a[flat_rows, safe].long() == A - 1
-        priors, values = _evaluate_states(
-            flat_core, flat_term, snaps, valid, flat_legal, eval_fn, gen,
-            cfg, size, last_is_pass=flat_lip,
-        )
+        codes = _draw_codes(mB, gen, cfg, dev)
+        parts = [
+            _evaluate_states(
+                GoCore(*(t[sl] for t in flat_core)), flat_term[sl],
+                hist[sl] if df else (hist[0][sl], hist[1][sl]),
+                flat_legal[sl], eval_fn, codes[sl], cfg, size,
+                last_is_pass=flat_lip[sl])
+            for sl in (slice(s, s + chunk) for s in range(0, mB, chunk))
+        ]
+        priors = torch.cat([p for p, _ in parts])
+        values = torch.cat([v for _, v in parts])
         # superko-terminal leaves keep the stored next-player-wins value
         flat_sk = tree.superko[flat_rows, safe]
         values = torch.where(flat_sk, tree.value[flat_rows, safe], values)
@@ -761,6 +845,12 @@ def mcts_simulate(tree: Tree, root_hist: torch.Tensor,
             active0 = active0 & active.repeat(m)
         _backprop_multi(tree, flat_rows, safe, values, active0, dup_count, cfg)
     return tree
+
+
+def total_batches(cfg: MCTSConfig) -> int:
+    """Simulation batches in one search: the larger budget over m."""
+    m = max(1, cfg.rollouts_per_batch)
+    return max(1, max(cfg.num_rollouts, cfg.white_num_rollouts) // m)
 
 
 def mcts_finalize(tree: Tree, gen: torch.Generator,
@@ -799,8 +889,9 @@ def run_mcts(
     size: int,
     init_tree: Optional[Tree] = None,
     game_hash_hist=None,           # (hash_hist_lo, hash_hist_hi, nhash)
-    root_last_placed: Optional[torch.Tensor] = None,
+    root_last_placed: Optional[torch.Tensor] = None,  # int32 [B, n2], df
     device: DeviceLike = "cuda",
+    simulate_s: Optional[list] = None,
 ) -> Tuple[MCTSResult, Tree]:
     """cfg.num_rollouts simulations for B boards in lockstep (prepare ->
     simulate -> finalize).  All tensors must lie on `device`, and `gen`
@@ -808,18 +899,29 @@ def run_mcts(
 
     `init_tree`: a tree from `fresh_tree` or `advance_tree`, searched on in
     place (its stats carry over; fresh noise is mixed into the reused roots'
-    raw priors); the returned tree is that object."""
+    raw priors); the returned tree is that object.
+
+    The simulation runs in `mcts_simulate` calls of at most
+    `cfg.max_batches_per_call` batches (all in one call when it is 0), each
+    given its cumulative batch offset: the same draws in the same order, so
+    the same result as one call.  `simulate_s`, where given, receives the
+    host seconds of each call."""
     dev = resolve_device(device)
     check_supported(cfg)
-    if root_last_placed is not None:
-        raise NotImplementedError("root_last_placed (df features)")
     if root_core.stones.device != dev:
         raise ValueError(f"root_core lies on {root_core.stones.device}, "
                          f"run_mcts was asked for {dev}")
     tree = mcts_root_prepare(root_core, root_hist, root_hist_len, eval_fn,
-                             gen, cfg, size, init_tree=init_tree)
-    m = max(1, cfg.rollouts_per_batch)
-    n_batches = max(1, max(cfg.num_rollouts, cfg.white_num_rollouts) // m)
-    mcts_simulate(tree, root_hist, root_hist_len, eval_fn, gen, cfg, size,
-                  n_batches, game_hash_hist=game_hash_hist)
+                             gen, cfg, size, init_tree=init_tree,
+                             root_last_placed=root_last_placed)
+    total = total_batches(cfg)
+    chunk = min(cfg.max_batches_per_call or total, total)
+    for offset in range(0, total, chunk):
+        t0 = time.perf_counter()
+        mcts_simulate(tree, root_hist, root_hist_len, eval_fn, gen, cfg, size,
+                      min(chunk, total - offset),
+                      game_hash_hist=game_hash_hist, batch_offset=offset,
+                      root_last_placed=root_last_placed)
+        if simulate_s is not None:
+            simulate_s.append(time.perf_counter() - t0)
     return mcts_finalize(tree, gen, cfg), tree

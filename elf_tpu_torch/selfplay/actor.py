@@ -16,9 +16,13 @@ SGF files) and their boards restart in place; `apply_ts_options` takes the
 search options a server sends.  With `persistent_tree` each board's search
 tree carries the played move's subtree into the next move (`advance_tree`)
 and restarts with its game (`reset_tree_where`); with `preload_sgf` every
-game starts from the record's position.
-Not ported yet (each raises NotImplementedError): the host-chunked search
-(`max_batches_per_call`) and mesh sharding.
+game starts from the record's position.  With `max_batches_per_call` a
+search runs as prepare, `mcts_simulate` calls of at most that many
+simulation batches, then finalize (`run_mcts`; the JAX actor's
+host-chunked search): the same draws in the same order, so the same move
+as one call.  With
+`feature_set="df"` the net reads df-25 planes.  Not ported yet: mesh
+sharding.
 """
 
 from __future__ import annotations
@@ -169,6 +173,8 @@ class SelfplayActor:
         self._dump_count = 0
         # the persistent search trees, made at the first move
         self.tree = None
+        # host seconds of each `mcts_simulate` call of the last search
+        self.simulate_s: List[float] = []
 
     def _start_state(self, B: int) -> GoState:
         state = init_state(B, self.size, self.device)
@@ -232,7 +238,10 @@ class SelfplayActor:
                                   device=self.device)
         else:
             codes = torch.zeros((B,), dtype=torch.long, device=self.device)
-        feats = features.extract_agz(state, codes, size)
+        if self.mcts_cfg.feature_set == "df":
+            feats = features.extract_df(state, codes, size)
+        else:
+            feats = features.extract_agz(state, codes, size)
         log_pi, value = eval_fn(feats, state.core.to_play)
         pi = features.inv_transform_policy(torch.exp(log_pi.float()), codes,
                                            size)
@@ -243,6 +252,26 @@ class SelfplayActor:
         return MCTSResult(mcts_policy=pi, best_action=best, root_value=value,
                           root_q=value)
 
+    def _search(self, state: GoState, eval_fn):
+        """One `run_mcts` over every board (on the persistent trees where
+        they are on), recording the host seconds of each simulate call.
+        Returns (MCTSResult, tree)."""
+        cfg, mcfg, size = self.cfg, self.mcts_cfg, self.size
+        if cfg.persistent_tree and self.tree is None:
+            capacity = mcfg.max_nodes or (
+                2 * max(mcfg.num_rollouts, mcfg.white_num_rollouts) + 2)
+            self.tree = fresh_tree(state.core.stones.shape[0], size,
+                                   max(capacity, 3), state.core)
+        self.simulate_s = []
+        return run_mcts(
+            state.core, state.stone_hist, state.hist_len, eval_fn, self.gen,
+            mcfg, size, init_tree=self.tree if cfg.persistent_tree else None,
+            game_hash_hist=(state.hash_hist_lo, state.hash_hist_hi,
+                            state.nhash),
+            root_last_placed=(state.last_placed
+                              if mcfg.feature_set == "df" else None),
+            device=self.device, simulate_s=self.simulate_s)
+
     def _move(self, state: GoState, eval_fn, never_resign: torch.Tensor,
               resign_thres: float):
         cfg, mcfg, size = self.cfg, self.mcts_cfg, self.size
@@ -250,19 +279,7 @@ class SelfplayActor:
         if mcfg.num_rollouts <= 0:
             res = self._policy_only(state, eval_fn)
         else:
-            if cfg.persistent_tree and self.tree is None:
-                capacity = mcfg.max_nodes or (
-                    2 * max(mcfg.num_rollouts, mcfg.white_num_rollouts) + 2)
-                self.tree = fresh_tree(state.core.stones.shape[0], size,
-                                       max(capacity, 3), state.core)
-            res, search_tree = run_mcts(
-                state.core, state.stone_hist, state.hist_len, eval_fn,
-                self.gen, mcfg, size,
-                init_tree=self.tree if cfg.persistent_tree else None,
-                game_hash_hist=(state.hash_hist_lo, state.hash_hist_hi,
-                                state.nhash),
-                device=self.device,
-            )
+            res, search_tree = self._search(state, eval_fn)
         # diverse move below the cutoff ply (game_selfplay.cc:80)
         diverse = state.core.ply <= cfg.policy_distri_cutoff
         logits = torch.where(res.mcts_policy > 0,

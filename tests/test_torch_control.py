@@ -835,9 +835,9 @@ def test_registry_matches_jax_and_refuses_unported():
     assert mode == "offline"
     with pytest.raises(NotImplementedError, match="policy_net"):
         tregistry.make_trainer("df_policy", SIZE, to, device="cpu")
-    with pytest.raises(NotImplementedError, match="df-25"):
-        tregistry.make_trainer("df_kl", SIZE, to, use_df_feature=True,
-                               device="cpu")
+    trainer, mode, fs = tregistry.make_trainer(
+        "df_kl", SIZE, to, use_df_feature=True, device="cpu")
+    assert (mode, fs, trainer.cfg.num_planes) == ("mcts", "df", 25)
     with pytest.raises(KeyError):
         tregistry.get_model_family("nope")
 
@@ -908,10 +908,29 @@ def test_entry_scripts_default_to_the_card(tmp_path):
     (["--model", "df_policy"], "policy_net"),
     (["--use_df_feature", "1"], "df-25"),
 ])
-def test_train_server_refuses_unported(tmp_path, argv, match):
+def test_train_server_refuses_unported(tmp_path, argv, match, monkeypatch):
+    """The multi-process learner and df_policy still raise.
+    `--use_df_feature` is ported: the server builds a 25-plane learner on
+    df batches (stopped here before it serves)."""
     base = ["--ckpt_dir", str(tmp_path), "--device", "cpu",
             "--num_block", "1", "--dim", "8", "--board_size", "5", "--port",
             "0"]
+    if match == "df-25":
+        built = {}
+
+        class Built(Exception):
+            pass
+
+        def runner(trainer, pipeline, *args, **kwargs):
+            built.update(trainer=trainer, pipeline=pipeline)
+            raise Built
+
+        monkeypatch.setattr(train_server_torch, "LearnerRunner", runner)
+        with pytest.raises(Built):
+            train_server_torch.main(base + argv)
+        assert built["trainer"].cfg.num_planes == 25
+        assert built["pipeline"].feature_set == "df"
+        return
     with pytest.raises(NotImplementedError, match=match):
         train_server_torch.main(base + argv)
 

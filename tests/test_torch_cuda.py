@@ -308,3 +308,81 @@ def test_device_batch_on_card_matches_cpu(dev):
                                tp.device_batch_offline(hb, "cpu")):
         assert on_card.device.type == "cuda"
         assert torch.equal(on_card.cpu(), on_cpu)
+
+
+@pytest.mark.parametrize("use_bf16", [False, True])
+def test_remat_step_on_card_equals_plain_step(dev, use_bf16, monkeypatch):
+    """Block remat on the card: three steps from one state give the plain
+    steps' BN statistics bit for bit (each written once per step) and
+    parameters within 1e-6, with cuDNN's deterministic algorithms."""
+    import copy
+    import dataclasses
+
+    from elf_tpu_torch.config import TrainOptions
+    from elf_tpu_torch.models.resnet import ModelConfig
+    from elf_tpu_torch.training.trainer import Trainer
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    cfg = ModelConfig(board_size=9, num_block=2, dim=16, use_bf16=use_bf16)
+    opts = TrainOptions(batchsize=8, lr=0.05)
+    plain_tr = Trainer(cfg, opts, device=dev)
+    remat_tr = Trainer(dataclasses.replace(cfg, remat=True), opts, device=dev)
+    plain = plain_tr.init_state(torch.Generator().manual_seed(0))
+    remat = copy.deepcopy(plain)
+    remat.net.cfg = remat_tr.cfg
+    for i in range(3):
+        batch = [t.to(dev) for t in _train_batch(20 + i)]
+        plain_tr.make_train_step()(plain, *batch)
+        remat_tr.make_train_step()(remat, *batch)
+        for (n, x), (_, y) in zip(plain.net.named_buffers(),
+                                  remat.net.named_buffers()):
+            assert torch.equal(x, y), (i, n)
+        for (n, x), (_, y) in zip(plain.net.named_parameters(),
+                                  remat.net.named_parameters()):
+            assert float((x - y).detach().abs().max()) <= 1e-6, (i, n)
+
+
+def _exact_eval(size):
+    """Equal priors on one action in eight, value (black - white) / 16."""
+    n2 = size * size
+    favored = (np.arange(n2 + 1) * 37 + 13) % 8 == 0
+
+    def eval_fn(feats, to_play):
+        K = feats.shape[0]
+        log_pi = torch.from_numpy(np.where(favored, 0.0, -1e4).astype(
+            np.float32)).to(feats.device)
+        mine = feats[..., 0].reshape(K, n2).sum(-1)
+        theirs = feats[..., 1].reshape(K, n2).sum(-1)
+        b = torch.where(to_play == BLACK, mine, theirs)
+        w = torch.where(to_play == BLACK, theirs, mine)
+        return (log_pi[None].expand(K, n2 + 1),
+                ((b - w) / 16.0).clamp(-1.0, 1.0))
+
+    return eval_fn
+
+
+def test_chunked_search_on_card_equals_unchunked(dev):
+    """On the card: a move searched in `max_batches_per_call` calls with
+    `eval_chunk` forwards equals the move searched in one call with one
+    forward per batch (19x19, B = 16, white budget twice black's)."""
+    from elf_tpu_torch.selfplay.actor import ActorConfig, SelfplayActor
+
+    size = 19
+    acfg = ActorConfig(board_size=size, batch=16, never_resign_prob=1.0,
+                       policy_distri_cutoff=2)
+    base = dict(num_rollouts=16, white_num_rollouts=32, rollouts_per_batch=4,
+                root_epsilon=0.25, batched_writes="on")
+    actors = [SelfplayActor(acfg, MCTSConfig(**base, **extra),
+                            lambda p, b: _exact_eval(size), seed=1,
+                            device=dev)
+              for extra in ({}, dict(max_batches_per_call=3, eval_chunk=16))]
+    for _ in range(3):
+        for a in actors:
+            a.play_moves(None, None, 1)
+        assert len(actors[0].simulate_s) == 1
+        assert len(actors[1].simulate_s) == 3
+        assert actors[0].moves == actors[1].moves
+        assert actors[0].values == actors[1].values
+        assert torch.equal(actors[0].state.core.stones,
+                           actors[1].state.core.stones)

@@ -2,8 +2,8 @@
 
  - trajectories (tests/golden/ref_traj_{9,19}): legal masks, stones,
    players, terminal flags, Tromp-Taylor evaluation and AGZ-18 planes
-   under D4 codes, bit-exact (as tests/test_golden_ref_trajectories.py,
-   AGZ only: the df-25 planes are not ported yet);
+   under D4 codes, bit-exact, and the df-25 planes within atol 2e-6,
+   rtol 1e-6 (as tests/test_golden_ref_trajectories.py);
  - search (tests/golden/ref_mcts_{9,19}): root visit counts of all 11
    configs exactly and root w within 5e-4 (as tests/test_golden_mcts.py);
  - the record wire codec (tests/golden/ref_sgf_codec_19).
@@ -40,7 +40,7 @@ def _stones_to_arr(s):
     return np.frombuffer(s.encode(), np.uint8) - ord("0")
 
 
-def _replay_group(games, size):
+def _replay_group(games, size, df=False):
     n2 = size * size
     B = len(games)
     st = gostate.init_state(B, size, "cpu")
@@ -78,16 +78,25 @@ def _replay_group(games, size):
             assert bool(term[b]) == bool(g["terminal"][i]), (g["seed"], i)
         due = [pr for pr in probes if pr[0] == i + 1]
         for code in sorted({p["d4"] for _, _, p in due}):
-            agz = features.extract_agz(
-                st, torch.full((B,), code, dtype=torch.int64), size).numpy()
+            codes = torch.full((B,), code, dtype=torch.int64)
+            if df:
+                planes = features.extract_df(st, codes, size).numpy()
+            else:
+                planes = features.extract_agz(st, codes, size).numpy()
+            key, C = ("df", 25) if df else ("agz", 18)
             for ply, b, probe in due:
                 if probe["d4"] != code:
                     continue
-                ref = (np.array(probe["agz"], np.float32)
-                       .reshape(18, size, size).transpose(2, 1, 0))
-                np.testing.assert_array_equal(
-                    agz[b], ref,
-                    err_msg=f"AGZ seed {games[b]['seed']} ply {ply} d4 {code}")
+                # reference layout [plane, x (col), y (row)]
+                ref = (np.array(probe[key], np.float32)
+                       .reshape(C, size, size).transpose(2, 1, 0))
+                what = f"{key} seed {games[b]['seed']} ply {ply} d4 {code}"
+                if df:
+                    np.testing.assert_allclose(planes[b], ref, atol=2e-6,
+                                               rtol=1e-6, err_msg=what)
+                else:
+                    np.testing.assert_array_equal(planes[b], ref,
+                                                  err_msg=what)
 
     ev = gostate.evaluate(st, size, komi=7.5).numpy()
     for b, g in enumerate(games):
@@ -102,6 +111,15 @@ def test_reference_trajectories(size):
         groups.setdefault(g["handicap"], []).append(g)
     for _, group in sorted(groups.items()):
         _replay_group(group, size)
+
+
+@pytest.mark.parametrize("size", [9, 19])
+def test_reference_df_planes(size):
+    groups = {}
+    for g in _load(f"ref_traj_{size}.jsonl.gz"):
+        groups.setdefault(g["handicap"], []).append(g)
+    for _, group in sorted(groups.items()):
+        _replay_group(group, size, df=True)
 
 
 # ---------------------------------------------------------------------------

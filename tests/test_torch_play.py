@@ -320,6 +320,29 @@ def test_gtp_transcript_matches_jax(script, persistent):
         assert all(s["carried_visits"] == 0 for s in searches)
 
 
+def test_gtp_fault_answers_and_the_console_goes_on(capsys):
+    """A handler that raises anything answers `? <message>` in both
+    consoles (the port logs the traceback on stderr) and the port's console
+    answers the commands after it."""
+    jcon, tcon = consoles("9x9", persistent=False)
+
+    def boom(color):
+        raise RuntimeError("the search failed")
+
+    for con in (jcon, tcon):
+        con.engine.genmove = boom
+    script = "1 genmove b\nplay b E5\n2 genmove w\nname\nshowboard\n"
+    jout, tout = io.StringIO(), io.StringIO()
+    jcon.run(stdin=io.StringIO(script), stdout=jout)
+    tcon.run(stdin=io.StringIO(script), stdout=tout)
+    assert tout.getvalue() == jout.getvalue()
+    answers = tout.getvalue().split("\n\n")
+    assert answers[:4] == ["?1 the search failed", "=",
+                           "?2 the search failed", "= elf_tpu"]
+    assert not tcon.done
+    assert "RuntimeError: the search failed" in capsys.readouterr().err
+
+
 def test_undo_restores_the_exact_position():
     """The history holds states that no later step or search changes: undo
     after a search gives back the earlier position bit for bit."""

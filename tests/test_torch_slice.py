@@ -150,9 +150,25 @@ def test_entry_points_default_to_cuda():
     dict(max_batches_per_call=2),
 ])
 def test_unported_search_options_raise(option):
-    with pytest.raises(NotImplementedError):
-        SelfplayActor(ActorConfig(**ACTOR), MCTSConfig(**SEARCH, **option),
-                      eval_fn_builder, device="cpu")
+    """The production search options and df features build an actor whose
+    moves replay legally (tests/test_torch_search_options.py and
+    tests/test_torch_df.py hold them against the JAX package)."""
+    actor = SelfplayActor(
+        ActorConfig(**{**ACTOR, "batch": 2, "move_cutoff": 2}),
+        MCTSConfig(**SEARCH, **option), eval_fn_builder, device="cpu")
+    planes = 25 if option.get("feature_set") == "df" else 18
+    net = build_model(ModelConfig(board_size=SIZE, num_block=1, dim=8,
+                                  num_planes=planes), device="cpu")
+    records = actor.play_moves(net, None, 2)
+    assert len(records) == 2
+    from elf_tpu_torch.env.go.coords import sgf_string_to_moves
+
+    moves = [sgf_string_to_moves(r.result.content, SIZE) for r in records]
+    st = tgostate.init_state(2, SIZE, "cpu")
+    for i in range(2):
+        st, info = tgostate.step(
+            st, torch.tensor([m[i] for m in moves], dtype=torch.int32), SIZE)
+        assert not bool(info.illegal.any())
 
 
 @pytest.mark.parametrize("option", [
@@ -184,6 +200,9 @@ def test_unported_actor_options_raise(option, tmp_path, monkeypatch):
 @pytest.mark.parametrize("option", ["remat", "mesh", "feature_set=df",
                                     "train_mode=offline"])
 def test_unported_learner_options_raise(option, tmp_path):
+    """`remat` and df batches are ported (tests/test_torch_remat.py,
+    tests/test_torch_df.py): a remat net and a df pipeline build; a mesh and
+    the offline train mode still raise."""
     from elf_tpu_torch.training.pipeline import TrainingPipeline
     from elf_tpu_torch.training.replay import ReplayBuffer
     from elf_tpu_torch.training.runner import LearnerRunner
@@ -191,18 +210,20 @@ def test_unported_learner_options_raise(option, tmp_path):
 
     small = dict(board_size=SIZE, num_block=1, dim=8)
     replay = ReplayBuffer(ReplayOptions(num_reader=2))
+    if option == "remat":
+        net = build_model(ModelConfig(**small, remat=True), device="cpu")
+        assert net.cfg.remat
+        return
+    if option == "feature_set=df":
+        assert TrainingPipeline(replay, SIZE, feature_set="df").feature_set \
+            == "df"
+        return
     with pytest.raises(NotImplementedError):
-        if option == "remat":
-            build_model(ModelConfig(**small, remat=True), device="cpu")
-        elif option == "feature_set=df":
-            TrainingPipeline(replay, SIZE, feature_set="df")
-        else:
-            trainer = Trainer(ModelConfig(**small), TrainOptions(),
-                              device="cpu")
-            kw = (dict(mesh=object()) if option == "mesh"
-                  else dict(train_mode="offline"))
-            LearnerRunner(trainer, TrainingPipeline(replay, SIZE),
-                          str(tmp_path), trainer.opts, **kw)
+        trainer = Trainer(ModelConfig(**small), TrainOptions(), device="cpu")
+        kw = (dict(mesh=object()) if option == "mesh"
+              else dict(train_mode="offline"))
+        LearnerRunner(trainer, TrainingPipeline(replay, SIZE),
+                      str(tmp_path), trainer.opts, **kw)
 
 
 def test_policy_quantization_matches_jax():

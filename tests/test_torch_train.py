@@ -383,7 +383,14 @@ def test_option_groups_match_jax_defaults():
 
 
 def test_remat_and_version_from_path(tmp_path):
-    with pytest.raises(NotImplementedError):
-        PolicyValueNet(ModelConfig(**NET, remat=True))
+    """A remat net builds and infers as the plain net does
+    (tests/test_torch_remat.py holds its train step)."""
+    remat = PolicyValueNet(ModelConfig(**NET, remat=True))
+    plain = PolicyValueNet(ModelConfig(**NET))
+    plain.load_state_dict(remat.state_dict())
+    x = torch.from_numpy(_batch(95)[0])
+    with torch.no_grad():
+        for a, b in zip(remat(x), plain(x)):
+            assert torch.equal(a, b)
     assert version_from_path(str(tmp_path / "save-120.bin")) == 120
     assert version_from_path(str(tmp_path / "init.bin")) == -1
