@@ -6,7 +6,8 @@
 Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA kernels from `elf_tpu_torch/csrc/` with nvcc, and the
-     host C code there (the game replayer, the ladder reader);
+     host C code there (the game replayer, the ladder reader, the SGF
+     codec);
   3. kernels: both designs of each kernel (the union-find kernels the
      engine launches and the first port's round-based ones, kept as the
      yardstick) against the plain PyTorch version on the card (19x19 and
@@ -94,19 +95,40 @@ Phases:
      df actor's first move with the df planes, `analyze_libs3` and the
      leaf walk timed by synchronising wrappers, and its second move under
      torch.profiler;
- 12. profile: one more slice move under torch.profiler, device time by
+ 12. offline: the supervised path and the secondary modules.  256
+     policy-only 19x19 games with the committed weights (B = 256, cut at
+     160 plies, Tromp-Taylor results checked against the records) written
+     as an SGF archive with the port's writer; `OfflineLoader` (16
+     threads: the C SGF parser and replayer) loads it (files/s); the
+     df_pred learner at 20b256c (`make_trainer("df_pred")`,
+     `LearnerRunner(train_mode="offline")`, 3 future actions, batch 256,
+     bf16 compute, fp32 masters): 20 steps, 10 of them timed by CUDA
+     events (positions/s, share of the bf16 bound, peak memory),
+     `loss/policy` falling over 20 steps on one fixed batch, one fp32 step
+     on the card against the same step on the CPU, 3 steps on df planes;
+     `scripts/demo_supervised_torch.py` on the archive and
+     `scripts/train_server_torch.py --model df_pred` up to its first
+     checkpoint, as processes; the 39 x 128 PolicyNet (25 planes, T = 3,
+     bf16) timed at B = 256 on df planes of the archive, normalised, and
+     in fp32 against the CPU; `tactics.self_atari_mask` on 8 boards of the
+     archive at ply 80 (both kernels at B = 2888) and the eye masks on
+     1024 boards equal to the CPU; the rl methods' values and gradients
+     within 1e-5 of the CPU.  Launch counts over the whole phase;
+ 13. profile: one more slice move under torch.profiler, device time by
      kernel group, with its own launch counts.
 
 The kernel phase times B = 1 too, the batch of the play surface.  Prints
 the card's nvidia-smi line, one JSON line describing the kernels
 (`launches` is the slice's count, `launches_train`, `launches_fleet`,
-`launches_play`, `launches_production` and `launches_df` those of the
-train, fleet, play, production and df phases), and last
+`launches_play`, `launches_production`, `launches_df` and
+`launches_offline` those of the train, fleet, play, production, df and
+offline phases), and last
 `{"ok": true, "device": {...}}`.  Exits non-zero, before printing any result, when CUDA is
 unavailable or the port is not beside this file.
 A copy of the numbers goes to chiprun_out/chip_smoke.json, the fleet's
 logs to chiprun_out/fleet/, the play processes' output and tree dumps to
-chiprun_out/play/.
+chiprun_out/play/, the offline phase's processes' output to
+chiprun_out/offline/.
 """
 
 from __future__ import annotations
@@ -145,6 +167,21 @@ PROD_B, PROD_ROLLOUTS, PROD_PER_BATCH, PROD_BATCHES_PER_CALL = 1024, 64, 8, 4
 REMAT_BATCH, REMAT_TIMED = 2048, 5
 # df-25: lockstep moves of the slice's shape
 DF_MOVES = 2
+# the offline (supervised) phase: archive games and their plies, the
+# learner's width, batch, horizons and steps, rows of the card-vs-CPU fp32
+# checks, the demo's steps, the PolicyNet (39 x 128, T = 3) forward's batch
+# and repetitions, and the tactics' boards
+OFFLINE_GAMES, OFFLINE_PLIES, OFFLINE_T = 256, 160, 3
+OFFLINE_BLOCKS, OFFLINE_DIM, OFFLINE_BATCH = 20, 256, 256
+OFFLINE_WARMUP, OFFLINE_TIMED, OFFLINE_STEPS, OFFLINE_DF_STEPS = 3, 10, 20, 3
+OFFLINE_CPU_ROWS, DEMO_STEPS = 16, 30
+PN_BATCH, PN_REPS, PN_CPU_ROWS = 256, 20, 64
+# the PolicyNet's bf16 checks: the largest relative error one bf16 layer may
+# add to the fp32 activations it is fed, the shallower depths whose bf16
+# forward is held (the first) or reported beside its fp32 twin, and the
+# share of rows whose top move the shallowest must keep
+PN_LAYER_TOL, PN_DEPTHS, PN_SHALLOW_TOP = 1e-2, (5, 10, 20), 0.95
+TACTICS_BOARDS, TACTICS_PLY, EYE_BOARDS = 8, 80, 1024
 
 
 def log(msg: str) -> None:
@@ -1704,6 +1741,550 @@ def df_phase(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the supervised path and the secondary modules
+# ---------------------------------------------------------------------------
+
+
+def calibrate_bn(net, x) -> None:
+    """Set every BN layer's running statistics to those of `x` (one
+    training-mode pass with momentum 1), so that an inference forward of a
+    randomly initialised net normalises its activations."""
+    from elf_tpu_torch.models.resnet import BatchNorm
+
+    bns = [m for m in net.modules() if isinstance(m, BatchNorm)]
+    kept = [bn.momentum for bn in bns]
+    for bn in bns:
+        bn.momentum = 1.0
+    with torch.no_grad():
+        net(x, train=True)
+    for bn, m in zip(bns, kept):
+        bn.momentum = m
+
+
+def prob_agreement(a: torch.Tensor, b: torch.Tensor):
+    """(share of rows with the same top move, largest absolute probability
+    difference) of two log-probability tensors [..., A]."""
+    top = (a.argmax(dim=-1) == b.argmax(dim=-1)).float().mean()
+    return float(top), float((a.exp() - b.exp()).abs().max())
+
+
+def layer_errors(net16, net32, x: torch.Tensor) -> list:
+    """Relative error (Frobenius) of each bf16 layer of the PolicyNet
+    `net16` against the same layer of its fp32 twin `net32`, both fed the
+    fp32 twin's activations of the layer before: the error that one bf16
+    layer adds, apart from the error it inherits."""
+    import torch.nn.functional as F
+
+    errs = []
+    with torch.no_grad():
+        h = x.permute(0, 3, 1, 2)
+        for c16, b16, c32, b32 in zip(net16.convs, net16.bns, net32.convs,
+                                      net32.bns):
+            y32 = b32(F.leaky_relu(c32(h), 0.1), False)
+            y16 = b16(F.leaky_relu(c16(h.bfloat16()), 0.1), False)
+            errs.append(float((y16.bfloat16().float() - y32).norm()
+                              / y32.norm()))
+            h = y32
+    return errs
+
+
+def rl_outputs(dev) -> dict:
+    """Every value, stat and gradient of the `rl` methods on seeded inputs
+    on `dev`, by name, on the host."""
+    from elf_tpu_torch.rl import methods, rnn
+
+    rng = np.random.default_rng(0)
+    T, B, A, D, H = 6, 32, 9, 5, 8
+
+    def t(a, grad=False):
+        return torch.tensor(a, device=dev, requires_grad=grad)
+
+    out = {}
+    logits = t(rng.normal(size=(T, B, A)).astype(np.float32), True)
+    values = t(rng.normal(size=(T + 1, B)).astype(np.float32), True)
+    acts = t(rng.integers(0, A, size=(T, B)).astype(np.int32))
+    rew = t(rng.normal(size=(T, B)).astype(np.float32))
+    term = t(rng.random((T, B)) < 0.25)
+    old = t(rng.dirichlet(np.ones(A), size=T * B).astype(np.float32))
+    out["returns"] = methods.discounted_returns(rew, term, values[-1].detach(),
+                                                0.9)
+    pi = torch.softmax(logits, dim=2)
+    losses = {
+        "pg": methods.policy_gradient_loss(
+            pi.reshape(T * B, A), acts.reshape(-1), rew.reshape(-1),
+            old_pi=old, ratio_clamp=2.0),
+        "ac": methods.actor_critic_loss(pi, values, acts, rew, term, 0.9),
+        "q": methods.q_learning_loss(logits, acts[:-1], rew[:-1], term[:-1]),
+    }
+    w = t((rng.normal(size=(D, H)) * 0.3).astype(np.float32), True)
+    xs = t(rng.normal(size=(T + 1, B, D)).astype(np.float32))
+
+    def cell(p, carry, x):
+        carry = torch.tanh(carry + x @ p["w"])
+        return carry, (torch.softmax(carry[:, :2], dim=1), carry[:, 2])
+
+    losses["rnn"] = rnn.rnn_actor_critic_loss(
+        cell, {"w": w}, torch.zeros(B, H, device=dev), xs, acts % 2, rew, term)
+    for name, (loss, stats) in losses.items():
+        for k, v in stats.items():
+            out[f"{name}/{k}"] = v
+        grads = torch.autograd.grad(loss, [logits, values, w],
+                                    retain_graph=True, allow_unused=True)
+        for gname, g in zip(("logits", "values", "w"), grads):
+            if g is not None:
+                out[f"{name}/grad_{gname}"] = g
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def offline_phase(card: str) -> dict:
+    """The supervised path at 19x19 and the secondary modules, on the card:
+    an SGF archive of policy-only self-play games (committed weights,
+    Tromp-Taylor results), the offline loader, the df_pred learner at
+    20b256c (AGZ and df planes), the supervised entry points as processes,
+    the 39 x 128 PolicyNet, the tactics and the rl methods.  The launch
+    counts are set to 0 at the start and read at the end."""
+    import dataclasses
+    import shutil
+
+    from elf_tpu_torch.config import ReplayOptions, TrainOptions
+    from elf_tpu_torch.env.go import engine, kernels, tactics
+    from elf_tpu_torch.models.policy_net import (
+        PolicyNetConfig,
+        init_policy_net,
+        policy_params_from_jax,
+        policy_params_to_jax,
+    )
+    from elf_tpu_torch.models.registry import make_trainer
+    from elf_tpu_torch.models.resnet import (
+        ModelConfig,
+        PolicyValueNet,
+        eval_fn_builder,
+        load_model,
+    )
+    from elf_tpu_torch.native.replayer import replay_to_snapshots
+    from elf_tpu_torch.native.sgf_codec import sgf_string_to_moves
+    from elf_tpu_torch.rl.sampler import Sampler, SamplerOptions
+    from elf_tpu_torch.search.mcts import MCTSConfig
+    from elf_tpu_torch.selfplay.actor import ActorConfig, SelfplayActor
+    from elf_tpu_torch.sgf import game_from_moves, serialize_sgf
+    from elf_tpu_torch.training.offline import OfflineLoader
+    from elf_tpu_torch.training.pipeline import TrainingPipeline
+    from elf_tpu_torch.training.replay import ReplayBuffer
+    from elf_tpu_torch.training.runner import LearnerRunner
+    from elf_tpu_torch.training.trainer import Trainer, TrainState
+
+    size, komi = 19, 7.5
+    out_dir = ROOT / "chiprun_out" / "offline"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    phase_t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+
+    # 1. the archive: policy-only games with the committed weights
+    net = load_model(str(ROOT / "runs/prove19/export-best.bin"),
+                     ModelConfig(), "cuda")
+    actor = SelfplayActor(
+        ActorConfig(board_size=size, batch=OFFLINE_GAMES, komi=komi,
+                    never_resign_prob=1.0, move_cutoff=OFFLINE_PLIES),
+        MCTSConfig(num_rollouts=0), eval_fn_builder, seed=5, device="cuda")
+    t0 = time.perf_counter()
+    records = actor.play_moves(net, None, OFFLINE_PLIES)
+    torch.cuda.synchronize()
+    selfplay_s = time.perf_counter() - t0
+    selfplay_launches = kernels.launch_counts()
+    del net, actor
+    if len(records) < OFFLINE_GAMES:
+        fail(f"offline: {len(records)} records from {OFFLINE_GAMES} games")
+    records = records[:OFFLINE_GAMES]
+    games = [sgf_string_to_moves(r.result.content, size) for r in records]
+    if any(not 0 < len(m) <= OFFLINE_PLIES for m in games):
+        fail("offline: a game is empty or longer than the cut")
+    finals = np.stack([replay_to_snapshots(m, size)[-1] for m in games])
+    core = engine.init_core(len(games), size, "cuda")._replace(
+        stones=torch.from_numpy(finals).cuda())
+    score = (engine.score_tromp_taylor(core, size).float() - komi).cpu()
+    score = score.numpy()
+    rewards = np.array([r.result.reward for r in records])
+    if not np.array_equal(np.where(score > 0, 1.0, -1.0), rewards):
+        fail("offline: a record's reward is not its Tromp-Taylor result")
+    archive = Path(tempfile.mkdtemp(prefix="chip_smoke_sgf_"))
+    for i, (moves, s) in enumerate(zip(games, score)):
+        result = f"B+{s:g}" if s > 0 else f"W+{-s:g}"
+        game = game_from_moves(moves, size, komi=komi, result=result)
+        (archive / f"game{i:04d}.sgf").write_text(serialize_sgf(game))
+    log(f"offline: {OFFLINE_GAMES} policy-only games of <= {OFFLINE_PLIES} "
+        f"plies in {selfplay_s:.2f} s (B {OFFLINE_GAMES}, committed weights), "
+        f"black won {int((score > 0).sum())}; launches {selfplay_launches}")
+
+    # 2. the offline loader: C parser + C replayer on 16 threads
+    def pipeline(feature_set):
+        return TrainingPipeline(
+            ReplayBuffer(ReplayOptions(num_reader=2, q_min_size=0,
+                                       q_max_size=1000), seed=0),
+            size, seed=0, num_future_actions=OFFLINE_T,
+            feature_set=feature_set)
+
+    pipe = pipeline("agz")
+    t0 = time.perf_counter()
+    loaded = OfflineLoader(pipe, num_threads=16).load_dir(str(archive))
+    load_s = time.perf_counter() - t0
+    if loaded != OFFLINE_GAMES:
+        fail(f"offline: the loader gave {loaded} of {OFFLINE_GAMES} records")
+    items = [it for q in pipe.replay.queues for it in q]
+    if sorted(list(map(len, (it.moves for it in items)))) != \
+            sorted(map(len, games)) or not all(it.record.offline
+                                               for it in items):
+        fail("offline: the loaded records are not the archive's games")
+    n_plies = sum(map(len, games))
+    log(f"offline: OfflineLoader(num_threads=16) loaded {loaded} files in "
+        f"{load_s * 1e3:.1f} ms: {loaded / load_s:.1f} files/s, "
+        f"{n_plies / load_s:.0f} positions/s, on {card}")
+
+    # 3. the df_pred learner: 20b256c, bf16 compute, fp32 masters
+    def check_stats(stats, where):
+        bad = {k: v for k, v in stats.items() if not np.isfinite(v)}
+        if bad:
+            fail(f"offline: stats not finite {where}: {bad}")
+
+    opts = TrainOptions(batchsize=OFFLINE_BATCH, num_block=OFFLINE_BLOCKS,
+                        dim=OFFLINE_DIM)
+    trainer, mode, feature_set = make_trainer("df_pred", size, opts,
+                                              device="cuda")
+    if (mode, feature_set) != ("offline", "agz"):
+        fail(f"offline: make_trainer('df_pred') gave {mode}, {feature_set}")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_offline_")
+    runner = LearnerRunner(trainer, pipe, ckpt_dir, opts, seed=0,
+                           train_mode="offline")
+    if any(p.dtype != torch.float32 for p in runner.state.net.parameters()):
+        fail("offline: the master weights are not fp32")
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(OFFLINE_WARMUP):
+        check_stats(runner.run_minibatch(), f"at warm-up step {i}")
+    step_ms, sample_ms = [], []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for i in range(OFFLINE_TIMED):
+        t0 = time.perf_counter()
+        hb = pipe.sample_host_batch(OFFLINE_BATCH)
+        sample_ms.append((time.perf_counter() - t0) * 1e3)
+        batch = pipe.device_batch_offline(hb, "cuda")
+        start.record()
+        runner.state, stats = runner._train_step(runner.state, *batch)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        check_stats({k: float(v) for k, v in stats.items()},
+                    f"at timed step {i}")
+    t0 = time.perf_counter()
+    rest = OFFLINE_STEPS - OFFLINE_WARMUP - OFFLINE_TIMED
+    for i in range(rest):
+        check_stats(runner.run_minibatch(), f"at minibatch {i}")
+    torch.cuda.synchronize()
+    minibatch_ms = (time.perf_counter() - t0) * 1e3 / max(rest, 1)
+    if runner.version() != OFFLINE_STEPS:
+        fail(f"offline: step {runner.version()} after {OFFLINE_STEPS} steps")
+    fixed = pipe.device_batch_offline(pipe.sample_host_batch(OFFLINE_BATCH),
+                                      "cuda")
+    fixed_policy = []
+    for i in range(OFFLINE_STEPS):
+        runner.state, stats = runner._train_step(runner.state, *fixed)
+        stats = {k: float(v) for k, v in stats.items()}
+        check_stats(stats, f"at fixed-batch step {i}")
+        fixed_policy.append(stats["loss/policy"])
+    if not fixed_policy[-1] < fixed_policy[0]:
+        fail(f"offline: loss/policy on one fixed batch did not fall: "
+             f"{fixed_policy}")
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    # one fp32 step on the card and on the CPU from one state and batch
+    cfg32 = dataclasses.replace(trainer.cfg, use_bf16=False)
+
+    def fp32_twin(device):
+        twin = PolicyValueNet(cfg32)
+        twin.load_state_dict(runner.state.net.state_dict())
+        twin = twin.to(device)
+        tr = Trainer(cfg32, opts, device=device)
+        return tr, TrainState(net=twin, opt_state=tr.tx.init(twin), step=0)
+
+    rows = tuple(t[:OFFLINE_CPU_ROWS] for t in fixed)
+    (tr_c, st_c), (tr_h, st_h) = fp32_twin("cuda"), fp32_twin("cpu")
+    st_c, sc = tr_c.make_offline_train_step()(st_c, *rows)
+    st_h, sh = tr_h.make_offline_train_step()(st_h, *(t.cpu() for t in rows))
+    stat_err = max(abs(float(sc[k]) - float(sh[k])) / max(1.0, abs(float(sh[k])))
+                   for k in sh)
+    tensor_err = max(
+        float((a.cpu() - b).abs().max()) / max(1.0, float(b.abs().max()))
+        for a, b in zip(st_c.net.state_dict().values(),
+                        st_h.net.state_dict().values()))
+    if stat_err > 1e-3 or tensor_err > 1e-4:
+        fail(f"offline: the fp32 step on the card differs from the CPU's: "
+             f"stats {stat_err:.2e}, parameters and BN statistics "
+             f"{tensor_err:.2e}")
+    del tr_c, st_c, tr_h, st_h
+
+    # df planes: the same archive through a 25-plane learner
+    trainer_df, mode, feature_set = make_trainer(
+        "df_pred", size, opts, use_df_feature=True, device="cuda")
+    if (mode, feature_set, trainer_df.cfg.num_planes) != ("offline", "df", 25):
+        fail(f"offline: df_pred with df planes gave {mode}, {feature_set}")
+    pipe_df = pipeline("df")
+    t0 = time.perf_counter()
+    if OfflineLoader(pipe_df, num_threads=16).load_dir(str(archive)) != \
+            OFFLINE_GAMES:
+        fail("offline: the df pipeline did not load every game")
+    load_df_s = time.perf_counter() - t0
+    runner_df = LearnerRunner(trainer_df, pipe_df, ckpt_dir, opts, seed=1,
+                              train_mode="offline")
+    df_stats = []
+    for i in range(OFFLINE_DF_STEPS):
+        df_stats.append(runner_df.run_minibatch())
+        check_stats(df_stats[-1], f"at df step {i}")
+    df_feats = pipe_df.device_batch_offline(
+        pipe_df.sample_host_batch(PN_BATCH), "cuda")[0]
+    del runner, runner_df, trainer, trainer_df, fixed, rows
+    torch.cuda.empty_cache()
+    flops = train_step_flops(ModelConfig(num_block=OFFLINE_BLOCKS,
+                                         dim=OFFLINE_DIM), OFFLINE_BATCH)
+    bound_ms = flops / BF16_FLOPS_PER_S * 1e3
+    med = float(np.median(step_ms))
+    log(f"offline: df_pred {OFFLINE_BLOCKS}b{OFFLINE_DIM}c bf16, fp32 masters,"
+        f" B {OFFLINE_BATCH}, T {OFFLINE_T}: step {med:.2f} ms median "
+        f"({min(step_ms):.2f}-{max(step_ms):.2f}, {OFFLINE_TIMED} steps, CUDA "
+        f"events), {OFFLINE_BATCH / med * 1e3:.1f} positions/s, "
+        f"{100 * bound_ms / med:.2f}% of the {bound_ms:.3f} ms bf16 bound, "
+        f"peak {peak_bytes / 2 ** 30:.2f} GiB, on {card}")
+    log(f"offline: sample_host_batch {np.median(sample_ms):.2f} ms, "
+        f"run_minibatch {minibatch_ms:.2f} ms; loss/policy on one fixed batch "
+        f"{fixed_policy[0]:.4f} -> {fixed_policy[-1]:.4f} over "
+        f"{OFFLINE_STEPS} steps; fp32 step card vs CPU ({OFFLINE_CPU_ROWS} "
+        f"rows): stats {stat_err:.2e}, tensors {tensor_err:.2e}; df planes: "
+        f"{OFFLINE_DF_STEPS} steps, loss/total "
+        f"{df_stats[-1]['loss/total']:.4f}, loader {load_df_s * 1e3:.1f} ms")
+
+    # 4. the entry points as processes
+    sys.path.append(str(ROOT / "scripts"))
+    from prove_production_torch import free_port, stop_all, wait_in_log
+
+    t0 = time.perf_counter()
+    demo = subprocess.run(
+        [sys.executable, str(ROOT / "scripts/demo_supervised_torch.py"),
+         "--sgf_dir", str(archive), "--blocks", str(OFFLINE_BLOCKS),
+         "--dim", str(OFFLINE_DIM), "--batch", str(OFFLINE_BATCH),
+         "--steps", str(DEMO_STEPS)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    demo_s = time.perf_counter() - t0
+    (out_dir / "demo_supervised.log").write_text(demo.stdout + demo.stderr)
+    if demo.returncode != 0:
+        fail(f"offline: demo_supervised_torch.py exited {demo.returncode}:\n"
+             f"{demo.stderr[-3000:]}")
+    demo_lines = [json.loads(x) for x in demo.stdout.strip().splitlines()]
+    demo_final = demo_lines[-1]
+    if demo_lines[0].get("loaded_games") != OFFLINE_GAMES or \
+            not demo_final.get("final") or \
+            demo_lines[0].get("train_mode") != "offline":
+        fail(f"offline: the demo's lines: {demo_lines[0]} ... {demo_final}")
+    log(f"offline: demo_supervised_torch.py {DEMO_STEPS} steps in "
+        f"{demo_s:.1f} s: {json.dumps(demo_final)}")
+
+    server_log = out_dir / "train_server.log"
+    ckpt = Path(tempfile.mkdtemp(prefix="chip_smoke_df_pred_"))
+    with open(server_log, "w") as f:
+        server = subprocess.Popen(
+            [sys.executable, str(ROOT / "scripts/train_server_torch.py"),
+             "--model", "df_pred", "--board_size", str(size),
+             "--num_block", str(OFFLINE_BLOCKS), "--dim", str(OFFLINE_DIM),
+             "--batchsize", str(OFFLINE_BATCH), "--port", str(free_port()),
+             "--num_reader", "2", "--q_min_size", "0", "--ckpt_dir",
+             str(ckpt)], cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+            text=True)
+        try:
+            up = wait_in_log(str(server_log), "server up on :", server,
+                             time.time() + 300, "the df_pred server")
+        finally:
+            stop_all([server], grace=30.0)
+    text = server_log.read_text()
+    if not up or "learner: model df_pred, train mode offline" not in text:
+        fail(f"offline: train_server_torch.py --model df_pred did not build "
+             f"its offline learner:\n{text[-3000:]}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log("offline: train_server_torch.py --model df_pred built its offline "
+        "learner, wrote its first checkpoint and served")
+
+    # 5. PolicyNet at the reference width (39 x 128, 25 planes, T = 3, bf16)
+    pcfg = PolicyNetConfig(num_future_actions=OFFLINE_T)
+    pnet = init_policy_net(pcfg, torch.Generator().manual_seed(11), "cuda")
+    calibrate_bn(pnet, df_feats)
+    with torch.no_grad():
+        log_pis = pnet(df_feats)
+        pn_ms = cuda_time_ms(lambda: pnet(df_feats), PN_REPS)
+    if tuple(log_pis.shape) != (PN_BATCH, OFFLINE_T, size * size + 1) or \
+            not bool(torch.isfinite(log_pis).all()):
+        fail(f"offline: PolicyNet gave {tuple(log_pis.shape)} or non-finite")
+    sum_err = float((log_pis.exp().sum(dim=2) - 1.0).abs().max())
+    if sum_err > 1e-3:
+        fail(f"offline: PolicyNet probabilities sum to 1 within {sum_err}")
+    cfg32 = dataclasses.replace(pcfg, use_bf16=False)
+    trees = policy_params_to_jax(pnet)
+    x = df_feats[:PN_CPU_ROWS]
+    net32 = policy_params_from_jax(*trees, cfg32, "cuda")
+    with torch.no_grad():
+        on_cpu = policy_params_from_jax(*trees, cfg32, "cpu")(x.cpu())
+        on_card = net32(x).cpu()
+    top32, diff32 = prob_agreement(on_card, on_cpu)
+    top16, diff16 = prob_agreement(log_pis[:PN_CPU_ROWS].cpu(), on_cpu)
+    if top32 < 0.95 or diff32 > 1e-3:
+        fail(f"offline: PolicyNet fp32 on the card against the CPU: top move "
+             f"{top32:.3f}, probabilities within {diff32:.2e}")
+    # Where the bf16 forward parts from its fp32 twin: the error one bf16
+    # layer adds (held), the top move by depth (the shallowest held), and,
+    # at full depth on the rows without the df planes' 1e4 sentinel (BN
+    # statistics from those rows), bf16 against fp32 and the fp32 net with
+    # its kernels rounded to bf16 (fp32 arithmetic) against the exact one.
+    local = layer_errors(pnet, net32, x)
+    if max(local) > PN_LAYER_TOL:
+        fail(f"offline: a bf16 PolicyNet layer adds {max(local):.2e} "
+             f"(layer {int(np.argmax(local))}), over {PN_LAYER_TOL}")
+    by_depth = {}
+    for depth in PN_DEPTHS:
+        dcfg = dataclasses.replace(pcfg, num_layer=depth)
+        d16 = init_policy_net(dcfg, torch.Generator().manual_seed(11), "cuda")
+        calibrate_bn(d16, df_feats)
+        d32 = policy_params_from_jax(*policy_params_to_jax(d16),
+                                     dataclasses.replace(dcfg, use_bf16=False),
+                                     "cuda")
+        with torch.no_grad():
+            by_depth[depth] = prob_agreement(d16(x), d32(x))
+    by_depth[pcfg.num_layer] = (top16, diff16)
+    if by_depth[PN_DEPTHS[0]][0] < PN_SHALLOW_TOP:
+        fail(f"offline: the {PN_DEPTHS[0]}-layer PolicyNet's bf16 forward "
+             f"keeps the fp32 top move on {by_depth[PN_DEPTHS[0]][0]:.3f} "
+             f"of the rows, under {PN_SHALLOW_TOP}")
+    sentinel = (df_feats[..., 14:16] >= 5000).flatten(1).any(1)
+    clean = df_feats[~sentinel]
+    c16 = init_policy_net(pcfg, torch.Generator().manual_seed(11), "cuda")
+    calibrate_bn(c16, clean)
+    params, stats = policy_params_to_jax(c16)
+    rounded = {k: ({**v, "kernel": torch.from_numpy(v["kernel"]).bfloat16()
+                    .float().numpy()} if k.startswith("conv") else v)
+               for k, v in params.items()}
+    xc = clean[:PN_CPU_ROWS]
+    with torch.no_grad():
+        exact = policy_params_from_jax(params, stats, cfg32, "cuda")(xc)
+        clean16 = prob_agreement(c16(xc), exact)
+        rounded32 = prob_agreement(
+            policy_params_from_jax(rounded, stats, cfg32, "cuda")(xc), exact)
+    n2 = size * size
+    pn_flops = 2.0 * PN_BATCH * n2 * 9 * pcfg.dim * (
+        pcfg.num_planes + (pcfg.num_layer - 1) * pcfg.dim + OFFLINE_T)
+    pn_bound_ms = pn_flops / BF16_FLOPS_PER_S * 1e3
+    log(f"offline: PolicyNet 39x128 bf16 T {OFFLINE_T}, B {PN_BATCH}: forward "
+        f"{pn_ms:.3f} ms (CUDA events, {PN_REPS} calls), "
+        f"{pn_flops / 1e12:.3f} TFLOP, {100 * pn_bound_ms / pn_ms:.1f}% of the "
+        f"{pn_bound_ms:.3f} ms bf16 bound; sums to 1 within {sum_err:.1e}; "
+        f"fp32 card vs CPU ({PN_CPU_ROWS} rows): top move {top32:.3f}, "
+        f"probabilities within {diff32:.2e}; bf16 vs fp32: top move "
+        f"{top16:.3f}, probabilities within {diff16:.2e}, on {card}")
+    log(f"offline: PolicyNet bf16 vs fp32: one layer adds at most "
+        f"{max(local):.2e} (layer {int(np.argmax(local))}; first "
+        f"{local[0]:.2e}); top move by depth "
+        + ", ".join(f"{d}: {a:.3f} (within {m:.2e})"
+                    for d, (a, m) in by_depth.items())
+        + f"; {int(sentinel.sum())} of {PN_BATCH} rows hold the 1e4 sentinel;"
+        f" without them ({len(xc)} rows, BN from {len(clean)}) at "
+        f"{pcfg.num_layer} layers: bf16 top move {clean16[0]:.3f}, fp32 with "
+        f"bf16-rounded kernels {rounded32[0]:.3f}")
+    del pnet, log_pis, df_feats
+    torch.cuda.empty_cache()
+
+    # 6. tactics and rl on the card against the CPU
+    playable = [m for m in games if len(m) >= TACTICS_PLY][:TACTICS_BOARDS]
+    if len(playable) < TACTICS_BOARDS:
+        fail(f"offline: fewer than {TACTICS_BOARDS} games reach ply "
+             f"{TACTICS_PLY}")
+    host_core = engine.init_core(TACTICS_BOARDS, size, "cpu")
+    for ply in range(TACTICS_PLY):
+        a = torch.tensor([m[ply] for m in playable], dtype=torch.int32)
+        host_core, info = engine.step_core(host_core, a, size)
+        if bool(info.illegal.any()):
+            fail("offline: an archive move is illegal on replay")
+    card_core = engine.GoCore(*(f.cuda() for f in host_core))
+    before = kernels.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sa_card = tactics.self_atari_mask(card_core, size)
+    torch.cuda.synchronize()
+    sa_ms = (time.perf_counter() - t0) * 1e3
+    after = kernels.launch_counts()
+    delta = {k: after[k] - before[k] for k in after}
+    if delta != {"analyze_libs": 1, "step_analysis": 1}:
+        fail(f"offline: self_atari_mask launched {delta}")
+    if not torch.equal(sa_card.cpu(), tactics.self_atari_mask(host_core, size)):
+        fail("offline: self_atari_mask on the card differs from the CPU's")
+    rng = np.random.default_rng(3)
+    eye_boards = np.stack([
+        replay_to_snapshots(games[i % len(games)], size)[
+            rng.integers(len(games[i % len(games)]))]
+        for i in range(EYE_BOARDS)])
+    colors = torch.from_numpy(rng.integers(1, 3, EYE_BOARDS).astype(np.int8))
+    stones = torch.from_numpy(eye_boards)
+    for fn in (tactics.eye_mask, tactics.fake_eye_mask, tactics.true_eye_mask,
+               tactics.semi_eye):
+        a, b = fn(stones.cuda(), colors.cuda(), size), fn(stones, colors, size)
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            if not torch.equal(x.cpu(), y):
+                fail(f"offline: {fn.__name__} on the card differs")
+    rl_card, rl_cpu = rl_outputs("cuda"), rl_outputs("cpu")
+    rl_err = max(float((rl_card[k] - rl_cpu[k]).abs().max()) for k in rl_cpu)
+    if rl_card.keys() != rl_cpu.keys() or rl_err > 1e-5:
+        fail(f"offline: rl on the card differs from the CPU by {rl_err}")
+    pi = torch.softmax(torch.from_numpy(rng.normal(size=(64, 9))), 1).float()
+    greedy = Sampler(SamplerOptions())
+    if not torch.equal(greedy.sample(pi.cuda(), None).cpu(),
+                       greedy.sample(pi, None)):
+        fail("offline: the greedy sampler differs on the card")
+    launches = kernels.launch_counts()
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"offline: {name} was not launched in the phase")
+    log(f"offline: self_atari_mask on {TACTICS_BOARDS} boards at ply "
+        f"{TACTICS_PLY} ({TACTICS_BOARDS * n2} boards per launch) "
+        f"{sa_ms:.2f} ms, {int(sa_card.sum())} self-atari points, equal to "
+        f"the CPU; eye masks on {EYE_BOARDS} boards equal; rl values and "
+        f"gradients within {rl_err:.1e} of the CPU; launches {launches}")
+    shutil.rmtree(archive, ignore_errors=True)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    phase_s = time.perf_counter() - phase_t0
+    log(f"offline: the phase's wall time {phase_s:.1f} s (host clock), on "
+        f"{card}")
+    return dict(
+        card=card, phase_s=phase_s, games=OFFLINE_GAMES, plies=n_plies,
+        selfplay_s=selfplay_s,
+        black_wins=int((score > 0).sum()), load_s=load_s,
+        files_per_s=loaded / load_s, positions_per_s_loaded=n_plies / load_s,
+        load_df_s=load_df_s, batch=OFFLINE_BATCH, horizons=OFFLINE_T,
+        step_ms_median=med, step_ms=step_ms,
+        positions_per_s=OFFLINE_BATCH / med * 1e3, step_flops=flops,
+        bound_ms=bound_ms, bound_share=bound_ms / med,
+        peak_memory_bytes=peak_bytes,
+        sample_host_batch_ms=float(np.median(sample_ms)),
+        run_minibatch_ms=minibatch_ms, fixed_batch_policy_loss=fixed_policy,
+        fp32_card_vs_cpu=dict(rows=OFFLINE_CPU_ROWS, stats_rel=stat_err,
+                              tensors_rel=tensor_err),
+        df_stats=df_stats, demo=dict(seconds=demo_s, final=demo_final),
+        policy_net=dict(batch=PN_BATCH, ms=pn_ms, flops=pn_flops,
+                        bound_ms=pn_bound_ms, bound_share=pn_bound_ms / pn_ms,
+                        sum_err=sum_err, fp32_top1=top32, fp32_max_diff=diff32,
+                        bf16_top1=top16, bf16_max_diff=diff16,
+                        layer_errors=local, by_depth=by_depth,
+                        sentinel_rows=int(sentinel.sum()),
+                        clean_bf16=clean16, clean_rounded_fp32=rounded32),
+        self_atari_ms=sa_ms, rl_max_err=rl_err, launches=launches,
+        selfplay_launches=selfplay_launches,
+    )
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1731,7 +2312,7 @@ def main() -> int:
         if any(w in line for w in ("entry function", "registers", "spill",
                                    "smem")):
             log(f"build: {line.strip()}")
-    for name in ("replayer", "ladder"):     # the host C code
+    for name in ("replayer", "ladder", "sgf_codec"):    # the host C code
         t0 = time.perf_counter()
         path, _ = _build.build(name)
         log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
@@ -1746,6 +2327,7 @@ def main() -> int:
     result["production"] = production_phase(card)
     result["remat"] = remat_phase(card)
     result["df"] = df_phase(card)
+    result["offline"] = offline_phase(card)
     result["profile"] = profile_phase(card, net)
 
     rows = []
@@ -1766,6 +2348,7 @@ def main() -> int:
             "launches_play": result["play"]["launches"][name],
             "launches_production": result["production"]["launches"][name],
             "launches_df": result["df"]["launches"][name],
+            "launches_offline": result["offline"]["launches"][name],
             "max_abs_err": k["worst"][name], "ms": t["union-find"]["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None,

@@ -6,17 +6,14 @@ Each entry pairs a network with its training loss:
   df_kl     PolicyValueNet + mcts_prediction_loss     (AlphaZero training)
   df_pred   PolicyValueNet + multiple_prediction_loss (supervised moves)
   df_policy PolicyNet      + multiple_prediction_loss (policy-only CNN)
-
-`PolicyNet` (`models/policy_net.py`) is not ported yet, so the df_policy
-entry has no network class, and `make_trainer` raises NotImplementedError
-for it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple
 
 from elf_tpu_torch.device import DeviceLike
+from elf_tpu_torch.models.policy_net import PolicyNet, PolicyNetConfig
 from elf_tpu_torch.models.resnet import ModelConfig, PolicyValueNet
 from elf_tpu_torch.training.loss import (
     mcts_prediction_loss,
@@ -25,8 +22,8 @@ from elf_tpu_torch.training.loss import (
 
 
 class ModelFamily(NamedTuple):
-    model_cls: Optional[type]      # None: the network is not ported yet
-    config_cls: Optional[type]
+    model_cls: type
+    config_cls: type
     loss_fn: Callable
     feature_set: str  # "agz" (18 planes) or "df" (25 planes)
 
@@ -36,7 +33,9 @@ MODELS: Dict[str, ModelFamily] = {
     "df_pred": ModelFamily(
         PolicyValueNet, ModelConfig, multiple_prediction_loss, "agz"
     ),
-    "df_policy": ModelFamily(None, None, multiple_prediction_loss, "df"),
+    "df_policy": ModelFamily(
+        PolicyNet, PolicyNetConfig, multiple_prediction_loss, "df"
+    ),
 }
 
 
@@ -59,14 +58,16 @@ def make_trainer(name: str, board_size: int, to, use_df_feature: bool = False,
     feature_set), as the JAX `make_trainer` (25 input planes where the
     feature set is df):
       df_kl   -> Trainer + "mcts"    (AlphaZero MCTSPrediction loss)
-      df_pred -> Trainer + "offline" (supervised MultiplePrediction; the
-                 port's LearnerRunner raises on it until
-                 training/offline.py is ported)."""
+      df_pred -> Trainer + "offline" (supervised MultiplePrediction)
+    df_policy (the value-head-less PolicyNet) has no Trainer path and
+    raises ValueError, as in the JAX package: build it with
+    `models.policy_net.init_policy_net`."""
     fam = get_model_family(name)
-    if fam.model_cls is None:
-        raise NotImplementedError(
-            f"model family '{name}': models/policy_net.py is not ported yet "
-            "(ROADMAP Queue 1, secondary pieces)")
+    if fam.model_cls is not PolicyValueNet:
+        raise ValueError(
+            f"model family '{name}' ({fam.model_cls.__name__}) has no "
+            "value head; use elf_tpu_torch.models.policy_net directly"
+        )
     feature_set = family_feature_set(name, use_df_feature)
     from elf_tpu_torch.training.trainer import Trainer
 

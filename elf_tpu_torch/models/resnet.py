@@ -220,10 +220,10 @@ class PolicyValueNet(nn.Module):
 _TRUNC_STD = 0.87962566103423978
 
 
-def init_weights(net: PolicyValueNet, generator: torch.Generator) -> None:
+def init_weights(net: nn.Module, generator: torch.Generator) -> None:
     """flax's default initialisation, in distribution: `lecun_normal`
     kernels (truncated normal, variance 1 / fan_in), zero biases, BN scale
-    1, BN statistics (0, 1)."""
+    1, BN statistics (0, 1).  Serves `PolicyValueNet` and `PolicyNet`."""
     with torch.no_grad():
         for name, p in net.named_parameters():
             if p.ndim > 1:

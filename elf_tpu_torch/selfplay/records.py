@@ -23,7 +23,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from elf_tpu_torch.env.go.coords import moves_to_sgf_string
+from elf_tpu_torch.native.sgf_codec import moves_to_sgf_string
 
 
 @dataclasses.dataclass

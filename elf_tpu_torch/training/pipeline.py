@@ -25,7 +25,6 @@ import numpy as np
 import torch
 
 from elf_tpu_torch.device import DeviceLike, resolve_device
-from elf_tpu_torch.env.go.coords import sgf_string_to_moves
 from elf_tpu_torch.env.go.features import (
     extract_agz_from_snapshots,
     extract_df_parts,
@@ -34,6 +33,7 @@ from elf_tpu_torch.env.go.features import (
 )
 from elf_tpu_torch.env.go.state import MAX_AGZ_HISTORY
 from elf_tpu_torch.native.replayer import replay_to_snapshots
+from elf_tpu_torch.native.sgf_codec import sgf_string_to_moves
 from elf_tpu_torch.selfplay.records import Record, dequantize_policy
 from elf_tpu_torch.training.replay import ReplayBuffer
 

@@ -28,7 +28,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from elf_tpu_torch.config import ReplayOptions
-from elf_tpu_torch.env.go.coords import sgf_string_to_moves
+from elf_tpu_torch.native.sgf_codec import sgf_string_to_moves
 from elf_tpu_torch.selfplay.records import Record, dequantize_policy
 
 

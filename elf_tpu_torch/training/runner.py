@@ -11,7 +11,7 @@ Counterpart of `elf_tpu/training/runner.py` (reference
 The steps update `self.state` in place (the JAX runner donates its state
 to the step instead), so a caller that needs a frozen copy of the state
 takes `copy.deepcopy(runner.state)`.  Training over several devices
-(`mesh`) and the supervised `train_mode="offline"` are not ported yet.
+(`mesh`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -41,11 +41,13 @@ class LearnerRunner:
         train_mode: str = "mcts",
     ):
         """train_mode: "mcts" (df_kl: AlphaZero MCTSPrediction on visit
-        distributions).  The state lives on the trainer's device."""
+        distributions) or "offline" (df_pred: supervised
+        MultiplePrediction on the `offline_a` future-action targets).  The
+        state lives on the trainer's device."""
         if mesh is not None:
             raise NotImplementedError("LearnerRunner(mesh=...)")
-        if train_mode != "mcts":
-            raise NotImplementedError(f"train_mode={train_mode!r}")
+        if train_mode not in ("mcts", "offline"):
+            raise ValueError(f"train_mode={train_mode!r}")
         self.trainer = trainer
         self.pipeline = pipeline
         self.ckpt_dir = ckpt_dir
@@ -62,7 +64,9 @@ class LearnerRunner:
         self.ckpt_keep = 10                # keep-last-k checkpoint cleanup
         self.save_enabled = True
         self.state = trainer.init_state(torch.Generator().manual_seed(seed))
-        self._train_step = trainer.make_train_step()
+        self._train_step = (trainer.make_offline_train_step()
+                            if train_mode == "offline"
+                            else trainer.make_train_step())
         self._cooldown_step = trainer.make_cooldown_step()
 
     def _sample_checked(self, checked: bool = True):
@@ -85,7 +89,10 @@ class LearnerRunner:
         hb = self._sample_checked()
         if hb is None:
             return None
-        feats, target, winner = self.pipeline.device_batch(hb, self.device)
+        batch = (self.pipeline.device_batch_offline
+                 if self.train_mode == "offline"
+                 else self.pipeline.device_batch)
+        feats, target, winner = batch(hb, self.device)
         self.state, stats = self._train_step(self.state, feats, target, winner)
         return {k: float(v) for k, v in stats.items()}
 

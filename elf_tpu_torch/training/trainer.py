@@ -13,8 +13,6 @@ The optimizer is written out as tensor updates in optax's order
 momentum trace or Adam.  Its state is kept in the dict shape that
 `flax.serialization.to_state_dict` gives the optax chain's state, so the
 checkpoint writer (`models/checkpoint.py`) stores it as it is.
-
-`make_offline_train_step` comes with `training/offline.py`.
 """
 
 from __future__ import annotations
@@ -37,7 +35,10 @@ from elf_tpu_torch.models.resnet import (
     PolicyValueNet,
     init_weights,
 )
-from elf_tpu_torch.training.loss import mcts_prediction_loss
+from elf_tpu_torch.training.loss import (
+    mcts_prediction_loss,
+    multiple_prediction_loss,
+)
 
 ADAM_B1, ADAM_B2 = 0.9, 0.999      # optax.adam's defaults
 
@@ -145,20 +146,20 @@ class Trainer:
 
     # -- steps --------------------------------------------------------------
 
-    def make_train_step(self) -> Callable:
+    def _step_with(self, loss_fn: Callable) -> Callable:
+        """A train step whose loss is `loss_fn(log_pi, value, target,
+        winner)` -> (loss, stats): one training forward (BN statistics
+        written once, with or without remat), the gradients of the fp32
+        masters, their global norm, one optimizer update."""
         tx = self.tx
-        value_weight = self.opts.value_loss_weight
 
         def train_step(
-            state: TrainState, features, mcts_scores, winner
+            state: TrainState, features, target, winner
         ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
             net = state.net
             with torch.enable_grad():
                 log_pi, value = net(features, train=True)
-                loss, stats = mcts_prediction_loss(
-                    log_pi, value, mcts_scores, winner,
-                    value_weight=value_weight,
-                )
+                loss, stats = loss_fn(log_pi, value, target, winner)
                 grads = list(torch.autograd.grad(loss, list(net.parameters())))
             with torch.no_grad():
                 stats = {k: v.detach() for k, v in stats.items()}
@@ -168,6 +169,24 @@ class Trainer:
             return state, stats
 
         return train_step
+
+    def make_train_step(self) -> Callable:
+        """AlphaZero step (df_kl): `train_step(state, features,
+        mcts_scores, winner)` with the MCTSPrediction loss."""
+        value_weight = self.opts.value_loss_weight
+
+        def loss_fn(log_pi, value, mcts_scores, winner):
+            return mcts_prediction_loss(log_pi, value, mcts_scores, winner,
+                                        value_weight=value_weight)
+
+        return self._step_with(loss_fn)
+
+    def make_offline_train_step(self) -> Callable:
+        """Supervised step (df_pred): `train_step(state, features,
+        offline_a, winner)` with MultiplePrediction over the multi-horizon
+        `offline_a` [B, T] targets (multiple_prediction.py:30); the same
+        optimizer, `grad_norm` stat and fp32 masters as `make_train_step`."""
+        return self._step_with(multiple_prediction_loss)
 
     def make_cooldown_step(self) -> Callable:
         """BN re-estimation pass: a training-mode forward that changes the

@@ -9,7 +9,9 @@ evaluation; `EvalSubCtrl` promotes or rejects it from the eval games the
 clients (`scripts/selfplay_client_torch.py`) play.
 
 Same options as the JAX script, plus `--device` (default `cuda`; the CPU
-runs only when asked for with `--device cpu`).  `--load` takes checkpoints
+runs only when asked for with `--device cpu`).  `--model df_pred` trains
+supervised (the offline train mode, MultiplePrediction on the records'
+moves); `--model df_policy` raises ValueError, as the JAX server does.  `--load` takes checkpoints
 of either package.  `--use_mesh` on one device runs the plain train step,
 as the JAX trivial 1-device mesh does; more than one device, and the
 `--dist_*` flags, raise NotImplementedError until `parallel/` is ported.
@@ -121,6 +123,9 @@ def main(argv=None):
         g.model, g.board_size, to, use_df_feature=g.use_df_feature,
         device=device,
     )
+    logger.info("learner: model %s, train mode %s, feature set %s, "
+                "%d input planes", g.model, train_mode, feature_set,
+                trainer.cfg.num_planes)
     if args.use_mesh:
         logger.info("training on 1 device (%s): the plain step", device)
 

@@ -833,7 +833,7 @@ def test_registry_matches_jax_and_refuses_unported():
                                       use_bf16=False)
     _, mode, _ = tregistry.make_trainer("df_pred", SIZE, to, device="cpu")
     assert mode == "offline"
-    with pytest.raises(NotImplementedError, match="policy_net"):
+    with pytest.raises(ValueError, match="no value head"):
         tregistry.make_trainer("df_policy", SIZE, to, device="cpu")
     trainer, mode, fs = tregistry.make_trainer(
         "df_kl", SIZE, to, use_df_feature=True, device="cpu")
@@ -905,11 +905,13 @@ def test_entry_scripts_default_to_the_card(tmp_path):
 @pytest.mark.parametrize("argv,match", [
     (["--dist_coordinator", "localhost:1234"], "parallel/"),
     (["--dist_num_processes", "2"], "parallel/"),
-    (["--model", "df_policy"], "policy_net"),
+    (["--model", "df_policy"], "no value head"),
     (["--use_df_feature", "1"], "df-25"),
 ])
 def test_train_server_refuses_unported(tmp_path, argv, match, monkeypatch):
-    """The multi-process learner and df_policy still raise.
+    """The multi-process learner still raises NotImplementedError.
+    `--model df_policy` raises ValueError, as the JAX server's
+    `make_trainer` does: the policy-only net has no value head to train.
     `--use_df_feature` is ported: the server builds a 25-plane learner on
     df batches (stopped here before it serves)."""
     base = ["--ckpt_dir", str(tmp_path), "--device", "cpu",
@@ -931,7 +933,8 @@ def test_train_server_refuses_unported(tmp_path, argv, match, monkeypatch):
         assert built["trainer"].cfg.num_planes == 25
         assert built["pipeline"].feature_set == "df"
         return
-    with pytest.raises(NotImplementedError, match=match):
+    error = ValueError if "df_policy" in argv else NotImplementedError
+    with pytest.raises(error, match=match):
         train_server_torch.main(base + argv)
 
 

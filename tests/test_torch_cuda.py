@@ -386,3 +386,82 @@ def test_chunked_search_on_card_equals_unchunked(dev):
         assert actors[0].values == actors[1].values
         assert torch.equal(actors[0].state.core.stones,
                            actors[1].state.core.stones)
+
+
+def test_offline_steps_on_card_match_cpu(dev, monkeypatch):
+    """Three fp32 supervised (df_pred) steps on the card against the same
+    steps on the CPU, on offline targets of two horizons: stats, parameters
+    and BN statistics within 1e-4 (TF32 off, as above)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cpu, a, card, b = _learner_pair(False, dev)
+    step_a, step_b = cpu.make_offline_train_step(), card.make_offline_train_step()
+    for i in range(3):
+        feats, _, winner = _train_batch(i)
+        target = torch.from_numpy(np.random.default_rng(i).integers(
+            0, 82, size=(8, 2)).astype(np.int32))
+        a, sa = step_a(a, feats, target, winner)
+        b, sb = step_b(b, feats.to(dev), target.to(dev), winner.to(dev))
+        assert "acc/top1" in sb
+        for k in sa:
+            assert abs(float(sa[k]) - float(sb[k])) < 1e-4 * max(
+                1.0, abs(float(sa[k]))), (i, k)
+    for (n, x), (_, y) in zip(a.net.state_dict().items(),
+                              b.net.state_dict().items()):
+        torch.testing.assert_close(y.cpu(), x, atol=1e-4, rtol=0, msg=n)
+
+
+def test_policy_net_bf16_on_card_close_to_fp32_cpu(dev):
+    """PolicyNet (6 layers x 32, 19x19, T = 3) in bf16 on the card against
+    the fp32 net from the same weights on the CPU: probabilities sum to 1
+    within 1e-3, the top move agrees on at least 90 % of the rows, and no
+    probability differs by more than 0.1."""
+    from elf_tpu_torch.models.policy_net import (
+        PolicyNetConfig,
+        init_policy_net,
+        policy_params_from_jax,
+        policy_params_to_jax,
+    )
+
+    cfg = PolicyNetConfig(num_layer=6, dim=32, num_future_actions=3,
+                          use_bf16=False)
+    net32 = init_policy_net(cfg, torch.Generator().manual_seed(0), "cpu")
+    net16 = policy_params_from_jax(
+        *policy_params_to_jax(net32),
+        PolicyNetConfig(num_layer=6, dim=32, num_future_actions=3), dev)
+    x = (torch.rand((64, 19, 19, 25), generator=torch.Generator()
+                    .manual_seed(1)) < 0.3).float()
+    with torch.no_grad():
+        ref = net32(x)
+        out = net16(x.to(dev)).cpu()
+    assert out.shape == (64, 3, 362) and out.dtype == torch.float32
+    assert float((out.exp().sum(dim=2) - 1).abs().max()) < 1e-3
+    assert (out.argmax(dim=2) == ref.argmax(dim=2)).float().mean() >= 0.9
+    assert float((out.exp() - ref.exp()).abs().max()) < 0.1
+
+
+def test_self_atari_and_eyes_on_card_equal_cpu(dev):
+    """`self_atari_mask` on the card (both liberty kernels launch, once
+    each, at B * 361 boards) and the eye masks equal the CPU path."""
+    from elf_tpu_torch.env.go import tactics
+
+    size, B = 19, 4
+    core = engine.init_core(B, size, "cpu")
+    rng = np.random.default_rng(3)
+    legal = np.ones((B, size * size + 1), bool)
+    for _ in range(60):
+        w = legal.astype(float)
+        w[:, -1] = 1e-3
+        a = np.array([rng.choice(len(r), p=r / r.sum()) for r in w], np.int32)
+        core, info = engine.step_core(core, torch.from_numpy(a), size)
+        legal = info.legal_next.numpy()
+    kernels.reset_launch_counts()
+    on_card = tactics.self_atari_mask(
+        engine.GoCore(*(f.to(dev) for f in core)), size)
+    assert kernels.launch_counts() == {"analyze_libs": 1, "step_analysis": 1}
+    assert torch.equal(on_card.cpu(), tactics.self_atari_mask(core, size))
+    colors = core.to_play
+    for fn in (tactics.eye_mask, tactics.fake_eye_mask,
+               tactics.true_eye_mask):
+        assert torch.equal(fn(core.stones.to(dev), colors.to(dev),
+                              size).cpu(), fn(core.stones, colors, size))

@@ -200,9 +200,10 @@ def test_unported_actor_options_raise(option, tmp_path, monkeypatch):
 @pytest.mark.parametrize("option", ["remat", "mesh", "feature_set=df",
                                     "train_mode=offline"])
 def test_unported_learner_options_raise(option, tmp_path):
-    """`remat` and df batches are ported (tests/test_torch_remat.py,
-    tests/test_torch_df.py): a remat net and a df pipeline build; a mesh and
-    the offline train mode still raise."""
+    """`remat`, df batches and the offline train mode are ported
+    (tests/test_torch_remat.py, tests/test_torch_df.py,
+    tests/test_torch_offline.py): a remat net and a df pipeline build, and
+    an offline runner takes a supervised step; a mesh still raises."""
     from elf_tpu_torch.training.pipeline import TrainingPipeline
     from elf_tpu_torch.training.replay import ReplayBuffer
     from elf_tpu_torch.training.runner import LearnerRunner
@@ -218,12 +219,24 @@ def test_unported_learner_options_raise(option, tmp_path):
         assert TrainingPipeline(replay, SIZE, feature_set="df").feature_set \
             == "df"
         return
+    trainer = Trainer(ModelConfig(**small), TrainOptions(batchsize=4),
+                      device="cpu")
+    if option == "train_mode=offline":
+        from elf_tpu_torch.training.offline import record_from_sgf
+
+        pipeline = TrainingPipeline(
+            ReplayBuffer(ReplayOptions(num_reader=2, q_min_size=1)), SIZE)
+        for text in ("(;SZ[9]RE[B+1];B[ee];W[cc];B[gg])",
+                     "(;SZ[9]RE[W+1];B[cg];W[ec])"):
+            pipeline.insert_record(record_from_sgf(text))
+        runner = LearnerRunner(trainer, pipeline, str(tmp_path),
+                               trainer.opts, train_mode="offline")
+        stats = runner.run_minibatch()
+        assert "acc/top1" in stats and runner.version() == 1
+        return
     with pytest.raises(NotImplementedError):
-        trainer = Trainer(ModelConfig(**small), TrainOptions(), device="cpu")
-        kw = (dict(mesh=object()) if option == "mesh"
-              else dict(train_mode="offline"))
         LearnerRunner(trainer, TrainingPipeline(replay, SIZE),
-                      str(tmp_path), trainer.opts, **kw)
+                      str(tmp_path), trainer.opts, mesh=object())
 
 
 def test_policy_quantization_matches_jax():
