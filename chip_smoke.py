@@ -114,21 +114,41 @@ Phases:
      archive at ply 80 (both kernels at B = 2888) and the eye masks on
      1024 boards equal to the CPU; the rl methods' values and gradients
      within 1e-5 of the CPU.  Launch counts over the whole phase;
- 13. profile: one more slice move under torch.profiler, device time by
+ 13. parallel: the mesh (`elf_tpu_torch/parallel/`), every rank a
+     subprocess on this card.  (a) Rank 0 alone on NCCL:
+     `LearnerRunner(mesh=make_mesh(1))` against the plain runner, one step
+     of the committed export at batch 256 (bf16, fp32 masters) from one
+     state and batch, bit for bit (deterministic cuDNN), then both timed
+     in turns by CUDA events.  (b) Two ranks on cuda:0 over gloo (NCCL
+     refuses two ranks on one device): dp = 2, then tp = 2, three fp32
+     steps at global batch 256 held within 1e-4 (each tensor against its
+     scale, the losses relative) of the same steps in one process, then
+     bf16 steps timed per rank with their peak memory: two ranks on one
+     card over gloo, host-staged all_reduce, not a multi-card figure.
+     (c) `scripts/train_server_torch.py --dist_* --dist_num_processes 1
+     --use_mesh 1` (NCCL, world 1) with one client, until the first
+     checkpoint is written and the client loads it.  (d) The sharded
+     actor, two ranks over gloo, B = 32 with the committed net: 2 moves
+     at dp = 2 (the slice's search) and 2 at tp = 2 (16 rollouts), games
+     cut at 2 moves; every move legal on host replay, every record on
+     rank 0 in board order, each rank's launches those of an unsharded
+     actor (the same calls over its boards);
+ 14. profile: one more slice move under torch.profiler, device time by
      kernel group, with its own launch counts.
 
 The kernel phase times B = 1 too, the batch of the play surface.  Prints
 the card's nvidia-smi line, one JSON line describing the kernels
 (`launches` is the slice's count, `launches_train`, `launches_fleet`,
-`launches_play`, `launches_production`, `launches_df` and
-`launches_offline` those of the train, fleet, play, production, df and
-offline phases), and last
+`launches_play`, `launches_production`, `launches_df`,
+`launches_offline` and `launches_parallel` those of the train, fleet,
+play, production, df, offline and parallel phases), and last
 `{"ok": true, "device": {...}}`.  Exits non-zero, before printing any result, when CUDA is
 unavailable or the port is not beside this file.
 A copy of the numbers goes to chiprun_out/chip_smoke.json, the fleet's
 logs to chiprun_out/fleet/, the play processes' output and tree dumps to
 chiprun_out/play/, the offline phase's processes' output to
-chiprun_out/offline/.
+chiprun_out/offline/, the parallel phase's server and client logs to
+chiprun_out/parallel/.
 """
 
 from __future__ import annotations
@@ -182,6 +202,12 @@ PN_BATCH, PN_REPS, PN_CPU_ROWS = 256, 20, 64
 # share of rows whose top move the shallowest must keep
 PN_LAYER_TOL, PN_DEPTHS, PN_SHALLOW_TOP = 1e-2, (5, 10, 20), 0.95
 TACTICS_BOARDS, TACTICS_PLY, EYE_BOARDS = 8, 80, 1024
+# the mesh: the learner's global batch, its fp32 steps checked and bf16
+# steps timed, the tolerance against one process; the sharded actor's
+# boards and moves, and the rollouts of its tp = 2 run (each leaf batch
+# crosses the host 21 times there)
+PAR_BATCH, PAR_STEPS, PAR_TIMED, PAR_TOL = 256, 3, 2, 1e-4
+PAR_B, PAR_MOVES, PAR_TP_ROLLOUTS = 32, 2, 16
 
 
 def log(msg: str) -> None:
@@ -2285,6 +2311,471 @@ def offline_phase(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the mesh (parallel/): ranks in subprocesses on this card
+# ---------------------------------------------------------------------------
+
+
+def run_ranks(fn, world: int, *args, timeout_s: float = 300.0) -> None:
+    """fn(rank, world, port, *args) in `world` spawned processes on this
+    card; fails the run if a rank fails or outlives `timeout_s`, and
+    leaves no rank running."""
+    import torch.multiprocessing as mp
+
+    sys.path.append(str(ROOT / "scripts"))
+    from prove_production_torch import free_port
+
+    ctx = mp.start_processes(fn, args=(world, free_port(), *args),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.time() + timeout_s
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.time() > deadline:
+                fail(f"parallel: {fn.__name__} ranks still running after "
+                     f"{timeout_s:.0f} s")
+    except Exception as e:      # a rank raised: its traceback is in `e`
+        fail(f"parallel: {fn.__name__}: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def _rank_init(rank: int, world: int, port: int, backend: str) -> None:
+    """Join the world as `rank` on cuda:0 (TF32 off, as in this process)."""
+    from elf_tpu_torch.parallel.distributed import maybe_initialize_distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    maybe_initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                 backend=backend)
+
+
+def _par_trainer(use_bf16: bool):
+    import dataclasses
+
+    from elf_tpu_torch.config import TrainOptions
+    from elf_tpu_torch.models.resnet import ModelConfig
+    from elf_tpu_torch.training.trainer import Trainer, load_checkpoint
+
+    cfg = dataclasses.replace(ModelConfig(), use_bf16=use_bf16)
+    tr = Trainer(cfg, TrainOptions(batchsize=PAR_BATCH), device="cuda")
+    state = load_checkpoint(str(ROOT / "runs/prove19/export-best.bin"),
+                            tr.init_state(torch.Generator().manual_seed(0)))
+    return tr, state
+
+
+def _timed_steps(step, state, batches, n: int):
+    """ms per step by CUDA events of `n` steps (cycling `batches`)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ms = []
+    for i in range(n):
+        start.record()
+        state, _ = step(state, *batches[i % len(batches)])
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return state, ms
+
+
+def _par_world1(rank, world, port, out):
+    """(a) rank 0 alone on NCCL: LearnerRunner(mesh=make_mesh(1)) against
+    the plain runner, one step from one state and batch, bit for bit
+    (deterministic cuDNN); then both timed in turns."""
+    from elf_tpu_torch.config import ReplayOptions
+    from elf_tpu_torch.parallel import make_mesh
+    from elf_tpu_torch.training.pipeline import TrainingPipeline
+    from elf_tpu_torch.training.replay import ReplayBuffer
+    from elf_tpu_torch.training.runner import LearnerRunner
+
+    _rank_init(rank, world, port, "nccl")
+    torch.backends.cudnn.deterministic = True
+    trainer, state = _par_trainer(True)
+    mesh = make_mesh(1)
+    runners = {}
+    for kind, m in (("plain", None), ("mesh", mesh)):
+        pipeline = TrainingPipeline(ReplayBuffer(ReplayOptions()), 19)
+        runners[kind] = LearnerRunner(trainer, pipeline, "unused",
+                                      trainer.opts, mesh=m)
+        runners[kind].load_state(copy.deepcopy(state))
+    batch = synthetic_batch(PAR_BATCH, 5)
+    stats = {}
+    for kind, r in runners.items():
+        r.state, s = r._train_step(r.state, *batch)
+        stats[kind] = {k: v.clone() for k, v in s.items()}
+    torch.cuda.synchronize()
+    equal = all(torch.equal(stats["plain"][k], stats["mesh"][k])
+                for k in stats["plain"])
+    sd = [r.full_state().net.state_dict() for r in runners.values()]
+    equal &= all(torch.equal(sd[0][k], sd[1][k]) for k in sd[0])
+    ms = {"plain": [], "mesh": []}
+    for kind in ("plain", "mesh", "mesh", "plain"):
+        r = runners[kind]
+        r.state, t = _timed_steps(r._train_step, r.state, [batch],
+                                  PAR_TIMED + 1)
+        ms[kind] += t[1:]
+    Path(out).write_text(json.dumps({
+        "equal": bool(equal), "ms": ms, "shape": mesh.shape,
+        "backend": torch.distributed.get_backend()}))
+    torch.distributed.destroy_process_group()
+
+
+def _par_steps(rank, world, port, data_path, out_dir):
+    """(b) two ranks on cuda:0 over gloo: PAR_STEPS fp32 steps of the
+    committed export at dp = 2, then at tp = 2, each held against the
+    single-process steps by the caller (rank 0 writes the gathered
+    states); then bf16 steps timed per rank, with its peak memory."""
+    from elf_tpu_torch.parallel.mesh import (
+        batch_sharding,
+        gather_state,
+        make_mesh,
+        make_sharded_train_step,
+        shard_state,
+    )
+
+    _rank_init(rank, world, port, "gloo")
+    batches = torch.load(data_path, weights_only=False)
+    timing = {}
+    for name, tp in (("dp2", 1), ("tp2", 2)):
+        mesh = make_mesh(world, tp=tp)
+        rows = batch_sharding(mesh, PAR_BATCH)
+        mine = [tuple(t[rows].cuda() for t in b) for b in batches]
+        trainer, state = _par_trainer(False)
+        step, shardings = make_sharded_train_step(trainer, mesh, state)
+        shard = shard_state(state, shardings)
+        del state
+        losses = []
+        for b in mine:
+            shard, s = step(shard, *b)
+            losses.append(float(s["loss/total"]))
+        full = gather_state(shard, shardings)
+        if rank == 0:
+            torch.save({"losses": losses,
+                        "sd": {k: v.cpu() for k, v in
+                               full.net.state_dict().items()}},
+                       Path(out_dir, f"{name}.pt"))
+        del full, shard
+        trainer, state = _par_trainer(True)
+        step, shardings = make_sharded_train_step(trainer, mesh, state)
+        shard = shard_state(state, shardings)
+        del state
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        shard, ms = _timed_steps(step, shard, mine, PAR_TIMED + 1)
+        timing[name] = {"ms": ms[1:], "first_ms": ms[0],
+                        "peak_bytes": torch.cuda.max_memory_allocated()}
+        del shard
+        torch.cuda.empty_cache()
+    Path(out_dir, f"timing{rank}.json").write_text(json.dumps(timing))
+    torch.distributed.destroy_process_group()
+
+
+def _par_actor(rank, world, port, out_dir):
+    """(d) two ranks on cuda:0 over gloo: the sharded actor at the slice's
+    search with the committed net, PAR_MOVES moves at dp = 2, then at
+    tp = 2 (the net tp-split); launch counts set to 0 just before each."""
+    from elf_tpu_torch.env.go import kernels
+    from elf_tpu_torch.models.resnet import ModelConfig, load_model
+    from elf_tpu_torch.parallel.mesh import (
+        StateShardings,
+        make_mesh,
+        param_shardings,
+        shard_state,
+    )
+    from elf_tpu_torch.training.trainer import TrainState
+
+    _rank_init(rank, world, port, "gloo")
+    net = load_model(str(ROOT / "runs/prove19/export-best.bin"),
+                     ModelConfig(), "cuda")
+    out = {}
+    for name, tp in (("dp2", 1), ("tp2", 2)):
+        mesh = make_mesh(world, tp=tp)
+        params = net
+        if tp > 1:
+            params = shard_state(
+                TrainState(net=net, opt_state={}, step=0),
+                StateShardings(mesh, param_shardings(mesh, net))).net
+        actor = par_actor(mesh, SLICE_ROLLOUTS if tp == 1
+                          else PAR_TP_ROLLOUTS)
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        records = actor.play_moves(params, None, PAR_MOVES)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        out[name] = {
+            "launches": kernels.launch_counts(), "seconds": seconds,
+            "boards": [actor.rows.start, actor.rows.stop],
+            "records": [[r.thread_id, r.result.content] for r in records],
+            "completed": actor.completed_games}
+    Path(out_dir, f"actor{rank}.json").write_text(json.dumps(out))
+    torch.distributed.destroy_process_group()
+
+
+def par_actor(mesh=None, rollouts: int = SLICE_ROLLOUTS):
+    """The sharded actor's configuration: the slice's search (at `rollouts`)
+    on PAR_B boards, games cut at PAR_MOVES moves so that every board's
+    record comes back."""
+    from elf_tpu_torch.models.resnet import eval_fn_builder
+    from elf_tpu_torch.search.mcts import MCTSConfig
+    from elf_tpu_torch.selfplay.actor import ActorConfig, SelfplayActor
+
+    return SelfplayActor(
+        ActorConfig(board_size=19, batch=PAR_B, never_resign_prob=1.0,
+                    move_cutoff=PAR_MOVES),
+        MCTSConfig(num_rollouts=rollouts,
+                   rollouts_per_batch=SLICE_PER_BATCH, root_epsilon=0.25),
+        lambda params, batch_stats: eval_fn_builder(params), seed=11,
+        device="cuda", mesh=mesh)
+
+
+def parallel_phase(card: str) -> dict:
+    """The mesh path at 19x19 20b256c, every rank a subprocess on this
+    card (no process group is left in this process): (a) the world-1 mesh
+    step on NCCL against the plain step, bit for bit, and its cost; (b)
+    dp = 2 and tp = 2 steps of two ranks over gloo against the
+    single-process steps, then their bf16 step time and peak memory; (c)
+    `train_server_torch.py --dist_*` at world 1 with one client, to its
+    first checkpoint and the client's load; (d) the sharded actor, dp = 2
+    and tp = 2, moves legal on host replay."""
+    import shutil
+    import signal
+
+    from elf_tpu_torch.env.go import kernels
+    from elf_tpu_torch.env.go.coords import sgf_string_to_moves
+    from elf_tpu_torch.models.resnet import ModelConfig, load_model
+
+    sys.path.append(str(ROOT / "scripts"))
+    from prove_production_torch import free_port, stop_all, wait_in_log
+
+    phase_t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+    log_dir = ROOT / "chiprun_out" / "parallel"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    out = {"card": card}
+
+    # (a) the mesh path at world 1
+    t0 = time.perf_counter()
+    run_ranks(_par_world1, 1, str(work / "world1.json"))
+    w1 = json.loads((work / "world1.json").read_text())
+    if not w1["equal"]:
+        fail("parallel: the world-1 mesh step is not the plain step bit "
+             "for bit")
+    plain_ms = float(np.median(w1["ms"]["plain"]))
+    mesh_ms = float(np.median(w1["ms"]["mesh"]))
+    out["world1"] = dict(w1, plain_ms=plain_ms, mesh_ms=mesh_ms,
+                         wall_s=time.perf_counter() - t0)
+    log(f"parallel: (a) world 1 ({w1['backend']}), mesh {w1['shape']}: the "
+        f"step equals the plain step bit for bit; batch {PAR_BATCH} bf16, "
+        f"fp32 masters: plain {plain_ms:.2f} ms, mesh {mesh_ms:.2f} ms "
+        f"(median of {2 * PAR_TIMED} each by CUDA events, in turns), on "
+        f"{card}")
+
+    # (b) dp = 2 and tp = 2, two ranks over gloo, against one process
+    t0 = time.perf_counter()
+    batches = [tuple(t.cpu() for t in synthetic_batch(PAR_BATCH, 20 + i))
+               for i in range(PAR_STEPS)]
+    torch.save(batches, work / "batches.pt")
+    trainer, state = _par_trainer(False)
+    step = trainer.make_train_step()
+    ref_losses = []
+    for b in batches:
+        state, s = step(state, *(t.cuda() for t in b))
+        ref_losses.append(float(s["loss/total"]))
+    ref = {k: v.cpu() for k, v in state.net.state_dict().items()}
+    del trainer, state, step
+    torch.cuda.empty_cache()
+    run_ranks(_par_steps, 2, str(work / "batches.pt"), str(work))
+    out["steps"] = {"reference_losses": ref_losses}
+    for name in ("dp2", "tp2"):
+        got = torch.load(work / f"{name}.pt", weights_only=False)
+        loss_err = max(abs(a - b) / abs(b)
+                       for a, b in zip(got["losses"], ref_losses))
+        # each tensor relative to its largest value (at least 1): a BN
+        # variance of 1e3 carries fp32 rounding of 1e-4 by itself
+        err, worst = max(
+            (float((got["sd"][k] - ref[k]).abs().max())
+             / max(1.0, float(ref[k].abs().max())), k) for k in ref)
+        if loss_err > PAR_TOL or err > PAR_TOL:
+            fail(f"parallel: {name}: losses within {loss_err:.2e}, "
+                 f"parameters and BN statistics within {err:.2e} ({worst}) "
+                 f"of the single-process steps (tolerance {PAR_TOL})")
+        timing = [json.loads((work / f"timing{r}.json").read_text())[name]
+                  for r in range(2)]
+        out["steps"][name] = dict(
+            loss_rel_err=loss_err, state_rel_err=err, worst_tensor=worst,
+            losses=got["losses"],
+            bf16_ms_per_rank=[float(np.median(t["ms"])) for t in timing],
+            bf16_ms=[t["ms"] for t in timing],
+            first_step_ms=[t["first_ms"] for t in timing],
+            peak_bytes_per_rank=[t["peak_bytes"] for t in timing])
+        s = out["steps"][name]
+        log(f"parallel: (b) {name}, 2 ranks on one card over gloo, global "
+            f"batch {PAR_BATCH}: {PAR_STEPS} fp32 steps of the committed "
+            f"export hold the single-process steps (losses within "
+            f"{loss_err:.2e}, parameters and BN statistics within "
+            f"{err:.2e} of each tensor's scale, worst {worst}); bf16 step "
+            + " / ".join(f"{m:.1f}" for m in s["bf16_ms_per_rank"])
+            + " ms per rank (median of {}, CUDA events), peak ".format(
+                PAR_TIMED)
+            + " / ".join(f"{p / 2 ** 30:.2f}" for p in
+                         s["peak_bytes_per_rank"])
+            + f" GiB per rank: two ranks on one card over gloo, host-staged "
+            f"all_reduce: not a multi-card figure; on {card}")
+    out["steps"]["wall_s"] = time.perf_counter() - t0
+
+    # (c) the multi-process server at world 1, with one client
+    t0 = time.time()
+    ckpt = work / "ckpt"
+    ckpt.mkdir()
+    port = free_port()
+    common = ["--board_size", "19", "--num_block", "20", "--dim", "256",
+              "--port", str(port), "--num_rollouts", str(FLEET_ROLLOUTS),
+              "--rollouts_per_batch", str(TRAIN_PER_BATCH),
+              "--ckpt_dir", str(ckpt)]
+    procs, files = {}, []
+
+    def spawn(name, cmd):
+        f = open(log_dir / f"{name}.log", "w")
+        files.append(f)
+        procs[name] = subprocess.Popen(cmd, cwd=ROOT, stdout=f,
+                                       stderr=subprocess.STDOUT, text=True)
+
+    def tails() -> str:
+        return "\n".join(f"----- {n} -----\n"
+                         f"{(log_dir / f'{n}.log').read_text()[-3000:]}"
+                         for n in procs)
+
+    try:
+        spawn("server", [
+            sys.executable, str(ROOT / "scripts/train_server_torch.py"),
+            "--dist_coordinator", f"127.0.0.1:{free_port()}",
+            "--dist_num_processes", "1", "--dist_process_id", "0",
+            "--use_mesh", "1",
+            "--load", str(ROOT / "runs/prove19/export-best.bin"),
+            "--batchsize", str(TRAIN_BATCH), "--num_minibatch",
+            str(FLEET_MINIBATCH), "--num_cooldown", str(TRAIN_COOLDOWN),
+            "--expected_num_clients", "1",
+            "--selfplay_init_num", str(FLEET_INIT),
+            "--num_reader", "2", "--q_min_size", "0", *common])
+        deadline = t0 + FLEET_DEADLINE_S
+        if not wait_in_log(str(log_dir / "server.log"), "server up on :",
+                           procs["server"], deadline, "server ready"):
+            fail(f"parallel: the --dist_* server was not ready\n{tails()}")
+        ready_s = time.time() - t0
+        saved = sorted(p.name for p in ckpt.glob("save-*.bin"))
+        spawn("client", [
+            sys.executable, str(ROOT / "scripts/selfplay_client_torch.py"),
+            "--num_games", str(FLEET_B), "--move_cutoff", str(TRAIN_CUTOFF),
+            "--moves_per_round", str(TRAIN_CUTOFF), "--seed", "7", *common])
+        if not wait_in_log(str(log_dir / "client.log"),
+                           "loaded model version", procs["client"], deadline,
+                           "client load"):
+            fail(f"parallel: the client did not load the checkpoint\n"
+                 f"{tails()}")
+        loaded_s = time.time() - t0
+    finally:
+        clean = stop_all([p for n, p in procs.items() if n == "client"],
+                         signal.SIGTERM, 60)
+        if "server" in procs:
+            clean &= stop_all([procs["server"]], signal.SIGINT, 60)
+        for f in files:
+            f.close()
+    if not clean:
+        fail(f"parallel: a server or client process had to be killed\n"
+             f"{tails()}")
+    server_log = (log_dir / "server.log").read_text()
+    if ("training on mesh {'dp': 1, 'tp': 1} (1 processes)" not in server_log
+            or "(nccl)" not in server_log):
+        fail(f"parallel: the server did not train on the NCCL world-1 mesh\n"
+             f"{tails()}")
+    client = log_summary(log_dir / "client.log")
+    if client is None:
+        fail(f"parallel: the client logged no summary\n{tails()}")
+    out["server"] = dict(ready_s=ready_s, first_checkpoints=saved,
+                         client_loaded_s=loaded_s,
+                         client_launches=client["kernel_launches"])
+    log(f"parallel: (c) train_server_torch.py --dist_* at world 1 (NCCL): "
+        f"{saved} written and the server up {ready_s:.1f} s after its "
+        f"launch (20b256c export loaded onto fp32 masters); the client "
+        f"loaded it {loaded_s:.1f} s after the server's launch; on {card}")
+
+    # (d) the sharded actor, against an unsharded one's launch counts
+    t0 = time.perf_counter()
+    net = load_model(str(ROOT / "runs/prove19/export-best.bin"),
+                     ModelConfig(), "cuda")
+    actor = par_actor()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    plain_records = actor.play_moves(net, None, PAR_MOVES)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    plain_launches = kernels.launch_counts()
+    del net, actor
+    torch.cuda.empty_cache()
+    run_ranks(_par_actor, 2, str(work))
+    ranks = [json.loads((work / f"actor{r}.json").read_text())
+             for r in range(2)]
+    launches = {k: client["kernel_launches"][k] for k in plain_launches}
+    out["actor"] = {"unsharded": dict(launches=plain_launches,
+                                      seconds=plain_s)}
+    for name, rollouts in (("dp2", SLICE_ROLLOUTS), ("tp2", PAR_TP_ROLLOUTS)):
+        r0, r1 = ranks[0][name], ranks[1][name]
+        # the unsharded actor's calls over a rank's boards: one step per
+        # rollout and per move, one legal mask per move
+        expected = {"step_analysis": (rollouts + 1) * PAR_MOVES,
+                    "analyze_libs": PAR_MOVES}
+        if name == "dp2" and plain_launches != expected:
+            fail(f"parallel: the unsharded actor launched {plain_launches}, "
+                 f"expected {expected}")
+        for r in (r0, r1):
+            for k, n in r["launches"].items():
+                launches[k] += n
+                if n <= 0:
+                    fail(f"parallel: {name}: {k} was not launched on a rank")
+                if n != expected[k]:
+                    fail(f"parallel: {name}: {k} launched {n} times on a "
+                         f"rank, the unsharded actor {expected[k]}")
+        if r1["records"] or r0["completed"] != PAR_B \
+                or [t for t, _ in r0["records"]] != list(range(PAR_B)):
+            fail(f"parallel: {name}: rank 0 did not return every record in "
+                 "board order, or rank 1 returned some")
+        moves = [sgf_string_to_moves(c, 19) for _, c in r0["records"]]
+        replay_is_legal(moves, 19)
+        seconds = max(r0["seconds"], r1["seconds"])
+        out["actor"][name] = dict(
+            rollouts=rollouts,
+            launches_per_rank=[r0["launches"], r1["launches"]],
+            seconds=seconds, moves_per_s=PAR_B * PAR_MOVES / seconds,
+            boards=[r0["boards"], r1["boards"]])
+        same = ""
+        if name == "dp2":
+            share = float(np.mean([a == b for a, b in zip(
+                moves, [sgf_string_to_moves(r.result.content, 19)
+                        for r in plain_records])]))
+            out["actor"][name]["games_equal_to_unsharded"] = share
+            same = (f"; {100 * share:.0f} % of the games equal the unsharded "
+                    "actor's (bf16 leaves at another batch)")
+        log(f"parallel: (d) actor {name}, 2 ranks on one card over gloo, B "
+            f"{PAR_B} ({r0['boards']} and {r1['boards']}), {rollouts} "
+            f"rollouts: {PAR_MOVES} moves in {seconds:.2f} s "
+            f"({PAR_B * PAR_MOVES / seconds:.2f} moves/s, first moves "
+            f"included), legal on host replay, every record on rank 0; "
+            f"launches per rank {r0['launches']}, the unsharded actor's "
+            f"over all {PAR_B} boards{same}; on {card}")
+    out["actor"]["wall_s"] = time.perf_counter() - t0
+    out["launches"] = launches
+    shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log(f"parallel: launches {launches} (client and ranks); the phase's "
+        f"wall time {out['phase_s']:.1f} s (host clock), on {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2328,6 +2819,7 @@ def main() -> int:
     result["remat"] = remat_phase(card)
     result["df"] = df_phase(card)
     result["offline"] = offline_phase(card)
+    result["parallel"] = parallel_phase(card)
     result["profile"] = profile_phase(card, net)
 
     rows = []
@@ -2349,6 +2841,7 @@ def main() -> int:
             "launches_production": result["production"]["launches"][name],
             "launches_df": result["df"]["launches"][name],
             "launches_offline": result["offline"]["launches"][name],
+            "launches_parallel": result["parallel"]["launches"][name],
             "max_abs_err": k["worst"][name], "ms": t["union-find"]["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None,

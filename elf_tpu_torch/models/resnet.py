@@ -28,6 +28,14 @@ forward collects every BN layer's batch statistics and writes the running
 statistics once, after the forward: a recomputed block computes its
 statistics again but writes nothing, so they move once per step, as
 flax's `mutable=["batch_stats"]` moves them.
+
+On a mesh (`parallel.mesh.shard_state`) the same forward runs over the
+ranks of a ("dp", "tp") world: a BatchNorm whose `sync` is set reduces
+its batch statistics over the dp group, a Conv or Dense layer whose `tp`
+is set holds its tp shard and runs as a column- or row-parallel layer,
+and a BatchNorm whose `channels` is set normalises that slice of the
+channels.  Without a mesh these attributes are None and the forward is
+the plain one, bit for bit.
 """
 
 from __future__ import annotations
@@ -87,13 +95,16 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
+        # on a mesh: the Mesh whose dp group the batch statistics are
+        # reduced over, and the slice of the channels this rank holds
+        self.sync = None
+        self.channels: Optional[slice] = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """Running statistics, or with `train` the batch statistics, which
         then also update the running ones."""
         if not train:
-            return self._normalise(x.float(), self.running_mean,
-                                   self.running_var)
+            return self._normalise(x.float(), *self._running())
         y, mean, var = self.batch_norm(x)
         self.update_running(mean, var)
         return y
@@ -102,6 +113,9 @@ class BatchNorm(nn.Module):
         """(y, mean, var): normalised with the batch statistics, which are
         returned and not written."""
         x = x.float()
+        if self.sync is not None:
+            mean, var = self.sync.dp_moments(x)
+            return self._normalise(x, mean, var), mean, var
         # flax `_compute_stats`: var = max(0, E[x^2] - E[x]^2), and the
         # running statistic takes this biased batch variance
         mean = x.mean(dim=(0, 2, 3))
@@ -111,13 +125,24 @@ class BatchNorm(nn.Module):
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         m = self.momentum
-        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-        self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        running_mean, running_var = self._running()
+        running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        running_var.mul_(1.0 - m).add_(var, alpha=m)
+
+    def _running(self):
+        """The running statistics of this rank's channels (views)."""
+        if self.channels is None:
+            return self.running_mean, self.running_var
+        return (self.running_mean[self.channels],
+                self.running_var[self.channels])
 
     def _normalise(self, x, mean, var):
-        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        weight, bias = self.weight, self.bias
+        if self.channels is not None:
+            weight, bias = weight[self.channels], bias[self.channels]
+        mul = torch.rsqrt(var + BN_EPS) * weight
         y = (x - mean[:, None, None]) * mul[:, None, None]
-        return y + self.bias[:, None, None]
+        return y + bias[:, None, None]
 
 
 def _bn(bn: BatchNorm, x: torch.Tensor, stats: Optional[list]):
@@ -140,11 +165,30 @@ class Conv(nn.Module):
         self.padding = k // 2
         self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
         self.bias = nn.Parameter(torch.zeros(cout))
+        self.tp = None      # on a mesh: its `parallel.mesh.LayerSplit`
+
+    def _conv(self, x, w, b):
+        return F.conv2d(x, w, b, padding=self.padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # no copy is made where the parameters already have the dtype
-        return F.conv2d(x, self.weight.to(self.dtype),
-                        self.bias.to(self.dtype), padding=self.padding)
+        w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
+        if self.tp is None:
+            return self._conv(x, w, b)
+        return self.tp.apply(self._conv, x, w, b)
+
+
+class Dense(nn.Linear):
+    """nn.Linear that can run as a tp shard (`tp`, as Conv's)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout)
+        self.tp = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is None:
+            return F.linear(x, self.weight, self.bias)
+        return self.tp.apply(F.linear, x, self.weight, self.bias)
 
 
 class ResBlock(nn.Module):
@@ -180,8 +224,8 @@ class PolicyValueNet(nn.Module):
         self.pi_fc = nn.Linear(2 * cfg.board_size ** 2, cfg.num_actions)
         self.v_conv = Conv(cfg.dim, 1, 1, dt)
         self.v_bn = BatchNorm(1, m)
-        self.v_fc1 = nn.Linear(cfg.board_size ** 2, cfg.value_hidden)
-        self.v_fc2 = nn.Linear(cfg.value_hidden, 1)
+        self.v_fc1 = Dense(cfg.board_size ** 2, cfg.value_hidden)
+        self.v_fc2 = Dense(cfg.value_hidden, 1)
 
     def forward(self, x: torch.Tensor,
                 train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -35,6 +35,10 @@ calls `mcts_simulate` in chunks of that many batches (the JAX actor's
 host-chunked search), each with its cumulative batch offset.  The
 data-dependent loops (descent, ancestor walk, backprop, fixpoints) check
 their end condition on the host once per step.
+
+A search over boards split across dp ranks (`shard`, a `BoardRows`) makes
+every random draw for all the boards on every rank and keeps its own
+rows, so each board's search is the unsharded one's.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import math
 import time
 from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from elf_tpu_torch.device import DeviceLike, resolve_device
@@ -57,6 +62,17 @@ from elf_tpu_torch.env.go.features import (
 
 NEG_INF = -1e9
 _KO_INACTIVE = 10_000
+
+
+class BoardRows(NamedTuple):
+    """The boards [lo, hi) of `total` that this rank searches, when the
+    boards are split over dp ranks.  `gather(mask)` is collective: the
+    [total] bool mask (host) of every rank's [hi - lo] masks."""
+
+    lo: int
+    hi: int
+    total: int
+    gather: Callable[[np.ndarray], np.ndarray]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -481,6 +497,36 @@ def _draw_codes(K: int, gen: torch.Generator, cfg: MCTSConfig,
     return torch.zeros((K,), dtype=torch.long, device=device)
 
 
+def _root_codes(fresh: torch.Tensor, B: int, gen: torch.Generator,
+                cfg: MCTSConfig, device,
+                shard: Optional[BoardRows]) -> Optional[torch.Tensor]:
+    """The D4 codes of the roots to evaluate (`fresh`, local ids), drawn for
+    the fresh roots of every rank; None when no root is fresh here."""
+    if shard is None or not cfg.rotation_flip:
+        if not fresh.numel():
+            return None
+        return _draw_codes(fresh.numel(), gen, cfg, device)
+    local = np.zeros(B, bool)
+    local[fresh.cpu().numpy()] = True
+    every = shard.gather(local)
+    if not every.any():
+        return None
+    codes = _draw_codes(int(every.sum()), gen, cfg, device)
+    # each fresh board's place among every rank's fresh boards
+    at = (np.cumsum(every) - 1)[shard.lo:shard.hi][local]
+    return codes[torch.from_numpy(at).to(device)] if fresh.numel() else None
+
+
+def _leaf_codes(m: int, B: int, gen: torch.Generator, cfg: MCTSConfig,
+                device, shard: Optional[BoardRows]) -> torch.Tensor:
+    """The D4 codes of a simulation batch's m * B leaves ([m, B] order),
+    drawn for every rank's boards."""
+    if shard is None:
+        return _draw_codes(m * B, gen, cfg, device)
+    codes = _draw_codes(m * shard.total, gen, cfg, device)
+    return codes.view(m, shard.total)[:, shard.lo:shard.hi].reshape(-1)
+
+
 def _evaluate_states(core: GoCore, is_term: torch.Tensor, hist,
                      legal: torch.Tensor, eval_fn: EvalFn,
                      codes: torch.Tensor, cfg: MCTSConfig, size: int,
@@ -568,11 +614,22 @@ def _log_gamma(alpha: float, shape, gen: torch.Generator, device):
     return out
 
 
+def _drawn_rows(shape, shard: Optional[BoardRows]):
+    """The shape to draw for `shape`'s rows: every rank's boards."""
+    return shape if shard is None else (shard.total,) + tuple(shape[1:])
+
+
+def _own_rows(x: torch.Tensor, shard: Optional[BoardRows]) -> torch.Tensor:
+    return x if shard is None else x[shard.lo:shard.hi]
+
+
 def dirichlet_noise(legal: torch.Tensor, alpha: float,
-                    gen: torch.Generator) -> torch.Tensor:
+                    gen: torch.Generator,
+                    shard: Optional[BoardRows] = None) -> torch.Tensor:
     """f32 [B, A] Dirichlet(alpha) draws over each row's legal actions
     (normalized gamma draws; zero on illegal actions)."""
-    lg = _log_gamma(alpha, legal.shape, gen, legal.device)
+    lg = _own_rows(_log_gamma(alpha, _drawn_rows(legal.shape, shard), gen,
+                              legal.device), shard)
     lg = torch.where(legal, lg, -math.inf)
     top = lg.amax(dim=1, keepdim=True)
     top = torch.where(torch.isfinite(top), top, 0.0)
@@ -580,11 +637,12 @@ def dirichlet_noise(legal: torch.Tensor, alpha: float,
     return noise / noise.sum(dim=1, keepdim=True).clamp(min=1e-10)
 
 
-def gumbel_categorical(logits: torch.Tensor,
-                       gen: torch.Generator) -> torch.Tensor:
+def gumbel_categorical(logits: torch.Tensor, gen: torch.Generator,
+                       shard: Optional[BoardRows] = None) -> torch.Tensor:
     """One categorical draw per row (argmax of logits + Gumbel noise, as
     jax.random.categorical)."""
-    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    u = _own_rows(torch.rand(_drawn_rows(logits.shape, shard), generator=gen,
+                             device=logits.device), shard)
     u = u.clamp(min=torch.finfo(torch.float32).tiny)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=1)
 
@@ -707,7 +765,8 @@ def mcts_root_prepare(root_core: GoCore, root_hist: torch.Tensor,
                       root_hist_len: torch.Tensor, eval_fn: EvalFn,
                       gen: torch.Generator, cfg: MCTSConfig, size: int,
                       init_tree: Optional[Tree] = None,
-                      root_last_placed: Optional[torch.Tensor] = None) -> Tree:
+                      root_last_placed: Optional[torch.Tensor] = None,
+                      shard: Optional[BoardRows] = None) -> Tree:
     """Phase 1: adopt `init_tree` (in place) or make a fresh tree, evaluate
     the roots that are not expanded yet, and mix Dirichlet noise into every
     root's raw prior.  A reused root keeps its value and its stored raw
@@ -722,6 +781,7 @@ def mcts_root_prepare(root_core: GoCore, root_hist: torch.Tensor,
 
     fresh = (~tree.expanded[:, 0]).nonzero().squeeze(1)
     raw_prior = tree.root_raw_prior.clone()
+    codes = _root_codes(fresh, B, gen, cfg, dev, shard)
     if fresh.numel():
         root_ids = torch.zeros_like(fresh)
         sub_core = GoCore(*(t[fresh] for t in root_core))
@@ -732,8 +792,7 @@ def mcts_root_prepare(root_core: GoCore, root_hist: torch.Tensor,
                                    root_hist_len)
         prior_eval, value_eval = _evaluate_states(
             _core_at(tree, fresh, root_ids), tree.terminal[fresh, 0], hist,
-            engine.legal_moves(sub_core, size), eval_fn,
-            _draw_codes(fresh.numel(), gen, cfg, dev), cfg, size,
+            engine.legal_moves(sub_core, size), eval_fn, codes, cfg, size,
             last_is_pass=sub_core.last_move >= size * size,
         )
         raw_prior[fresh] = prior_eval
@@ -741,7 +800,7 @@ def mcts_root_prepare(root_core: GoCore, root_hist: torch.Tensor,
     prior = raw_prior
     if cfg.root_epsilon > 0:
         legal = prior >= 0
-        noise = dirichlet_noise(legal, cfg.root_alpha, gen)
+        noise = dirichlet_noise(legal, cfg.root_alpha, gen, shard)
         base = prior.clamp(min=0.0)
         base = base / base.sum(dim=1, keepdim=True).clamp(min=1e-10)
         mixed = (1 - cfg.root_epsilon) * base + cfg.root_epsilon * noise
@@ -757,7 +816,8 @@ def mcts_simulate(tree: Tree, root_hist: torch.Tensor,
                   gen: torch.Generator, cfg: MCTSConfig, size: int,
                   n_batches: int, game_hash_hist=None,
                   batch_offset: int = 0,
-                  root_last_placed: Optional[torch.Tensor] = None) -> Tree:
+                  root_last_placed: Optional[torch.Tensor] = None,
+                  shard: Optional[BoardRows] = None) -> Tree:
     """Phase 2: `n_batches` simulation batches, each `rollouts_per_batch`
     select/expand passes + one fused leaf evaluation + one backprop walk.
 
@@ -810,7 +870,7 @@ def mcts_simulate(tree: Tree, root_hist: torch.Tensor,
                                    root_hist_len)
         flat_legal = tree.prior[flat_rows, safe] >= 0
         flat_lip = tree.parent_a[flat_rows, safe].long() == A - 1
-        codes = _draw_codes(mB, gen, cfg, dev)
+        codes = _leaf_codes(m, B, gen, cfg, dev, shard)
         parts = [
             _evaluate_states(
                 GoCore(*(t[sl] for t in flat_core)), flat_term[sl],
@@ -853,8 +913,8 @@ def total_batches(cfg: MCTSConfig) -> int:
     return max(1, max(cfg.num_rollouts, cfg.white_num_rollouts) // m)
 
 
-def mcts_finalize(tree: Tree, gen: torch.Generator,
-                  cfg: MCTSConfig) -> MCTSResult:
+def mcts_finalize(tree: Tree, gen: torch.Generator, cfg: MCTSConfig,
+                  shard: Optional[BoardRows] = None) -> MCTSResult:
     """Phase 3: the root statistics as an MCTSResult."""
     B = tree.stones.shape[0]
     dev = tree.stones.device
@@ -867,7 +927,8 @@ def mcts_finalize(tree: Tree, gen: torch.Generator,
     if cfg.pick_method == "prior":
         best = torch.argmax(torch.where(legal_root, root_prior, -1.0), dim=1)
     elif cfg.pick_method == "uniform_random":
-        best = gumbel_categorical(torch.where(legal_root, 0.0, -1e9), gen)
+        best = gumbel_categorical(torch.where(legal_root, 0.0, -1e9), gen,
+                                  shard)
     else:  # most_visited
         best = torch.argmax(visits + 1e-6 * root_prior.clamp(min=0.0), dim=1)
     root_q = w_root.sum(dim=1) / visits.sum(dim=1).clamp(min=1.0)
@@ -892,6 +953,7 @@ def run_mcts(
     root_last_placed: Optional[torch.Tensor] = None,  # int32 [B, n2], df
     device: DeviceLike = "cuda",
     simulate_s: Optional[list] = None,
+    shard: Optional[BoardRows] = None,
 ) -> Tuple[MCTSResult, Tree]:
     """cfg.num_rollouts simulations for B boards in lockstep (prepare ->
     simulate -> finalize).  All tensors must lie on `device`, and `gen`
@@ -905,7 +967,8 @@ def run_mcts(
     `cfg.max_batches_per_call` batches (all in one call when it is 0), each
     given its cumulative batch offset: the same draws in the same order, so
     the same result as one call.  `simulate_s`, where given, receives the
-    host seconds of each call."""
+    host seconds of each call.  `shard`: this rank's share of boards split
+    over dp ranks (`BoardRows`; every rank calls run_mcts together)."""
     dev = resolve_device(device)
     check_supported(cfg)
     if root_core.stones.device != dev:
@@ -913,7 +976,7 @@ def run_mcts(
                          f"run_mcts was asked for {dev}")
     tree = mcts_root_prepare(root_core, root_hist, root_hist_len, eval_fn,
                              gen, cfg, size, init_tree=init_tree,
-                             root_last_placed=root_last_placed)
+                             root_last_placed=root_last_placed, shard=shard)
     total = total_batches(cfg)
     chunk = min(cfg.max_batches_per_call or total, total)
     for offset in range(0, total, chunk):
@@ -921,7 +984,9 @@ def run_mcts(
         mcts_simulate(tree, root_hist, root_hist_len, eval_fn, gen, cfg, size,
                       min(chunk, total - offset),
                       game_hash_hist=game_hash_hist, batch_offset=offset,
-                      root_last_placed=root_last_placed)
+                      root_last_placed=root_last_placed, shard=shard)
         if simulate_s is not None:
             simulate_s.append(time.perf_counter() - t0)
-    return mcts_finalize(tree, gen, cfg), tree
+    if shard is None:
+        return mcts_finalize(tree, gen, cfg), tree
+    return mcts_finalize(tree, gen, cfg, shard), tree

@@ -21,8 +21,18 @@ search runs as prepare, `mcts_simulate` calls of at most that many
 simulation batches, then finalize (`run_mcts`; the JAX actor's
 host-chunked search): the same draws in the same order, so the same move
 as one call.  With
-`feature_set="df"` the net reads df-25 planes.  Not ported yet: mesh
-sharding.
+`feature_set="df"` the net reads df-25 planes.
+
+With a `parallel.mesh.Mesh` the boards are split over the dp ranks: dp
+index r plays boards [r*B/dp, (r+1)*B/dp), and the tp ranks of one dp
+index hold the same boards and evaluate leaves through the tp-split net
+(their searches stay in lockstep: the reduced outputs are identical).
+Every random draw, on the device and on the host, is made for all B
+boards on every rank and each rank keeps its own, and every rank keeps
+the host bookkeeping of all B boards from the per-move results gathered
+over the mesh's host group, so the sharded games are the unsharded
+actor's.  `play_moves` returns every record, in board order, on rank 0
+and [] on the other ranks.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from elf_tpu_torch.env.go import state as gostate
 from elf_tpu_torch.env.go.engine import BLACK
 from elf_tpu_torch.env.go.state import GoState, _tree_where, init_state, step
 from elf_tpu_torch.search.mcts import (
+    BoardRows,
     MCTSConfig,
     MCTSResult,
     advance_tree,
@@ -135,9 +146,12 @@ class SelfplayActor:
         eval_fn_builder: Callable[..., Any],
         seed: int = 0,
         device: DeviceLike = "cuda",
+        mesh=None,
     ):
         """eval_fn_builder(params, batch_stats) -> eval_fn(features, to_play);
-        see `models.resnet.eval_fn_builder` for a torch net."""
+        see `models.resnet.eval_fn_builder` for a torch net.  `mesh`: a
+        `parallel.mesh.Mesh` to split the boards over (B must divide by
+        its dp); every rank of its world plays together."""
         self.device = resolve_device(device)
         check_supported(mcts_cfg)
         self.cfg = cfg
@@ -152,7 +166,20 @@ class SelfplayActor:
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
 
         B = cfg.batch
-        self._fresh_state = self._make_fresh_state(B)
+        # this rank's boards [lo, hi) of the B, where the host arrays of
+        # all B boards keep its part
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.rows = slice(0, B)
+        self.board_rows = None
+        if self.mesh is not None:
+            from elf_tpu_torch.parallel.mesh import batch_sharding
+
+            self.rows = batch_sharding(mesh, B)
+            self.board_rows = BoardRows(self.rows.start, self.rows.stop, B,
+                                        self.mesh.host_gather_rows)
+        self.rank0 = self.mesh is None or self.mesh.rank == 0
+        self._fresh_state = self._make_fresh_state(self.rows.stop
+                                                   - self.rows.start)
         self.state = self._fresh_state
         stones0 = self._fresh_state.core.stones[0].cpu().numpy()
         self._first_player = int(self._fresh_state.core.to_play[0])
@@ -234,8 +261,8 @@ class SelfplayActor:
         size = self.size
         B = state.core.stones.shape[0]
         if self.mcts_cfg.rotation_flip:
-            codes = torch.randint(0, 8, (B,), generator=self.gen,
-                                  device=self.device)
+            codes = torch.randint(0, 8, (self.cfg.batch,), generator=self.gen,
+                                  device=self.device)[self.rows]
         else:
             codes = torch.zeros((B,), dtype=torch.long, device=self.device)
         if self.mcts_cfg.feature_set == "df":
@@ -270,7 +297,8 @@ class SelfplayActor:
                             state.nhash),
             root_last_placed=(state.last_placed
                               if mcfg.feature_set == "df" else None),
-            device=self.device, simulate_s=self.simulate_s)
+            device=self.device, simulate_s=self.simulate_s,
+            shard=self.board_rows)
 
     def _move(self, state: GoState, eval_fn, never_resign: torch.Tensor,
               resign_thres: float):
@@ -285,7 +313,8 @@ class SelfplayActor:
         logits = torch.where(res.mcts_policy > 0,
                              torch.log(res.mcts_policy.clamp(min=1e-10)),
                              -1e9)
-        sampled = gumbel_categorical(logits, self.gen).to(torch.int32)
+        sampled = gumbel_categorical(logits, self.gen,
+                                     self.board_rows).to(torch.int32)
         action = torch.where(diverse, sampled, res.best_action)
         action = _maybe_follow_pass(cfg, state, action, res.root_q, size)
 
@@ -327,37 +356,57 @@ class SelfplayActor:
     def play_moves(self, params, batch_stats, n_moves: int,
                    request: Optional[MsgRequest] = None) -> List[Record]:
         """Advance all B games by n_moves plies; returns Records of games
-        that finished (each finished board is reset in place)."""
+        that finished (each finished board is reset in place); on a mesh,
+        on rank 0 only."""
         self._select_white_opts_variant(request)
         records: List[Record] = []
         eval_fn = self.eval_fn_builder(params, batch_stats)
         with torch.inference_mode():
             for _ in range(n_moves):
                 records.extend(self._play_one(eval_fn, request))
-        return records
+        return records if self.rank0 else []
+
+    def _all_boards(self, *arrays: np.ndarray) -> List[np.ndarray]:
+        """Per-board host arrays of this rank's boards -> those of all B
+        boards: one gather of their float32 columns over the mesh (exact
+        for these values: policies, values and scores are float32, the
+        integers below 2^24)."""
+        if self.mesh is None:
+            return list(arrays)
+        n = arrays[0].shape[0]
+        cols = [a.reshape(n, -1).astype(np.float32) for a in arrays]
+        every = self.mesh.host_gather_rows(np.concatenate(cols, axis=1))
+        out, at = [], 0
+        for a, c in zip(arrays, cols):
+            w = c.shape[1]
+            part = every[:, at:at + w].reshape((-1,) + a.shape[1:])
+            out.append(part.astype(a.dtype))
+            at += w
+        return out
 
     def _play_one(self, eval_fn, request) -> List[Record]:
         cfg = self.cfg
         B = cfg.batch
         dev = self.device
+        own = self.rows
         if self.active_boards is not None:
             inact = torch.zeros(B, dtype=torch.bool, device=dev)
             inact[self.active_boards:] = True
             self.state = self.state._replace(
-                terminated=self.state.terminated | inact)
+                terminated=self.state.terminated | inact[own])
         was_terminated = self.state.terminated.cpu().numpy()
         to_play_before = self.state.core.to_play.cpu().numpy()
         ply_before = self.state.core.ply.cpu().numpy()
-        nr = torch.from_numpy(self.never_resign).to(dev)
+        nr = torch.from_numpy(self.never_resign[own]).to(dev)
         new_state, out = self._move(self.state, eval_fn, nr,
                                     float(self.resign_thres))
 
-        action = out.action.cpu().numpy()
-        policy = out.mcts_policy.cpu().numpy()
-        value = out.predicted_value.cpu().numpy()
-        resign = out.resign.cpu().numpy()
-        terminated = out.terminated.cpu().numpy()
-        score = out.final_score.cpu().numpy()
+        (was_terminated, to_play_before, ply_before, action, policy, value,
+         resign, terminated, score) = self._all_boards(
+            was_terminated, to_play_before, ply_before,
+            out.action.cpu().numpy(), out.mcts_policy.cpu().numpy(),
+            out.predicted_value.cpu().numpy(), out.resign.cpu().numpy(),
+            out.terminated.cpu().numpy(), out.final_score.cpu().numpy())
 
         records: List[Record] = []
         finished = np.zeros(B, bool)
@@ -400,8 +449,8 @@ class SelfplayActor:
             if frozen.any():
                 self.state = self.state._replace(
                     terminated=self.state.terminated
-                    | torch.from_numpy(frozen).to(dev))
-            mask = torch.from_numpy(reset).to(dev)
+                    | torch.from_numpy(frozen[own]).to(dev))
+            mask = torch.from_numpy(reset[own]).to(dev)
             self.state = _tree_where(mask, self._fresh_state, self.state)
             if cfg.persistent_tree and self.tree is not None:
                 self.tree = reset_tree_where(self.tree, mask, self.state.core)
@@ -422,7 +471,7 @@ class SelfplayActor:
         without the preload, as the JAX actor does."""
         B = self.cfg.batch
         self.tree = None
-        self.state = self._start_state(B)
+        self.state = self._start_state(self.rows.stop - self.rows.start)
         for b in range(B):
             if self.moves[b]:
                 self.seqs[b] += 1
@@ -443,7 +492,7 @@ class SelfplayActor:
         (go_state_ext.h dumpSgf); the moves are those played after any
         preload.  A file that cannot be written is logged and skipped, as
         the JAX actor skips it."""
-        if not self.cfg.dump_record_prefix:
+        if not self.cfg.dump_record_prefix or not self.rank0:
             return
         result = f"B+{abs(reward)}" if reward > 0 else f"W+{abs(reward)}"
         game = game_from_moves(self.moves[b], self.size, komi=self.cfg.komi,

@@ -146,11 +146,17 @@ class Trainer:
 
     # -- steps --------------------------------------------------------------
 
-    def _step_with(self, loss_fn: Callable) -> Callable:
+    def _step_with(self, loss_fn: Callable, mesh=None) -> Callable:
         """A train step whose loss is `loss_fn(log_pi, value, target,
         winner)` -> (loss, stats): one training forward (BN statistics
         written once, with or without remat), the gradients of the fp32
-        masters, their global norm, one optimizer update."""
+        masters, their global norm, one optimizer update.
+
+        With a `parallel.mesh.Mesh` the step takes this rank's batch rows
+        and shard of the state (`parallel.mesh.make_sharded_train_step`):
+        the gradients are averaged over dp and the partly used vectors'
+        summed over tp before the norm and the update, and the stats are
+        the dp mean, the same on every rank."""
         tx = self.tx
 
         def train_step(
@@ -163,30 +169,36 @@ class Trainer:
                 grads = list(torch.autograd.grad(loss, list(net.parameters())))
             with torch.no_grad():
                 stats = {k: v.detach() for k, v in stats.items()}
-                stats["grad_norm"] = global_norm(grads)   # before clipping
+                if mesh is None:
+                    stats["grad_norm"] = global_norm(grads)  # before clipping
+                else:
+                    mesh.reduce_gradients(net, grads)
+                    stats = mesh.dp_mean(stats)
+                    stats["grad_norm"] = mesh.global_norm(net, grads)
                 tx.update(net, grads, stats["grad_norm"], state.opt_state)
             state.step += 1
             return state, stats
 
         return train_step
 
-    def make_train_step(self) -> Callable:
+    def make_train_step(self, mesh=None) -> Callable:
         """AlphaZero step (df_kl): `train_step(state, features,
-        mcts_scores, winner)` with the MCTSPrediction loss."""
+        mcts_scores, winner)` with the MCTSPrediction loss (`mesh`: see
+        `_step_with`)."""
         value_weight = self.opts.value_loss_weight
 
         def loss_fn(log_pi, value, mcts_scores, winner):
             return mcts_prediction_loss(log_pi, value, mcts_scores, winner,
                                         value_weight=value_weight)
 
-        return self._step_with(loss_fn)
+        return self._step_with(loss_fn, mesh)
 
-    def make_offline_train_step(self) -> Callable:
+    def make_offline_train_step(self, mesh=None) -> Callable:
         """Supervised step (df_pred): `train_step(state, features,
         offline_a, winner)` with MultiplePrediction over the multi-horizon
         `offline_a` [B, T] targets (multiple_prediction.py:30); the same
         optimizer, `grad_norm` stat and fp32 masters as `make_train_step`."""
-        return self._step_with(multiple_prediction_loss)
+        return self._step_with(multiple_prediction_loss, mesh)
 
     def make_cooldown_step(self) -> Callable:
         """BN re-estimation pass: a training-mode forward that changes the

@@ -111,8 +111,9 @@ def parse_args(argv=None):
     ap.add_argument("--final_target", type=float, default=0.60)
     ap.add_argument("--moves_per_round", type=int, default=16)
     ap.add_argument("--use_mesh", type=int, default=1,
-                    help="the server's --use_mesh (one device: the plain "
-                         "step)")
+                    help="the server's --use_mesh: the learner over every "
+                         "local card, one rank each (one device: the plain "
+                         "step on the trivial mesh)")
     ap.add_argument("--seed", type=int, default=11)
     return ap.parse_args(argv)
 
@@ -394,14 +395,20 @@ def main(argv=None):
             json.dump(progress, f)
 
     # ---- verdict -------------------------------------------------------
-    # every accept/reject decision the server logged, with its win rate
+    # the mesh the server's learner ran on, and every accept/reject
+    # decision it logged, with its win rate
     server_log = os.path.join(out, "server.log")
     ladder = []
     if os.path.exists(server_log):
         with open(server_log) as f:
-            ladder = [line.strip().split("] ")[-1] for line in f
-                      if "] PROMOTE eval " in line
-                      or "] rejected eval " in line]
+            lines = f.readlines()
+        for line in lines:
+            if "training on mesh" in line:
+                print(f"# learner mesh: {line.strip().split('] ')[-1]}",
+                      flush=True)
+                break
+        ladder = [line.strip().split("] ")[-1] for line in lines
+                  if "] PROMOTE eval " in line or "] rejected eval " in line]
     with open(os.path.join(out, "eval_ladder.txt"), "w") as f:
         f.writelines(line + "\n" for line in ladder)
     for line in ladder:

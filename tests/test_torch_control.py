@@ -903,48 +903,71 @@ def test_entry_scripts_default_to_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--dist_coordinator", "localhost:1234"], "parallel/"),
-    (["--dist_num_processes", "2"], "parallel/"),
+    # the ids of the cases that asserted NotImplementedError before the
+    # multi-process learner was ported
+    pytest.param(["--dist_coordinator", "localhost:1234", "--use_mesh", "0"],
+                 r"--dist_\* requires --use_mesh 1", id="argv0-parallel/"),
+    pytest.param(["--dist_num_processes", "2"], "single-process",
+                 id="argv1-parallel/"),
     (["--model", "df_policy"], "no value head"),
     (["--use_df_feature", "1"], "df-25"),
 ])
 def test_train_server_refuses_unported(tmp_path, argv, match, monkeypatch):
-    """The multi-process learner still raises NotImplementedError.
+    """`--dist_coordinator` without `--use_mesh 1` raises the JAX
+    script's assertion message.  `--dist_num_processes` alone serves
+    single-process on the trivial mesh, as the JAX server ignores it.
     `--model df_policy` raises ValueError, as the JAX server's
     `make_trainer` does: the policy-only net has no value head to train.
-    `--use_df_feature` is ported: the server builds a 25-plane learner on
-    df batches (stopped here before it serves)."""
+    `--use_df_feature` builds a 25-plane learner on df batches.  The
+    servers are stopped here before they serve."""
+    import torch.distributed as dist
+
     base = ["--ckpt_dir", str(tmp_path), "--device", "cpu",
             "--num_block", "1", "--dim", "8", "--board_size", "5", "--port",
             "0"]
-    if match == "df-25":
+    if match in ("df-25", "single-process"):
         built = {}
 
         class Built(Exception):
             pass
 
         def runner(trainer, pipeline, *args, **kwargs):
-            built.update(trainer=trainer, pipeline=pipeline)
+            built.update(trainer=trainer, pipeline=pipeline, **kwargs)
             raise Built
 
         monkeypatch.setattr(train_server_torch, "LearnerRunner", runner)
         with pytest.raises(Built):
             train_server_torch.main(base + argv)
+        if match == "single-process":
+            assert not dist.is_initialized()
+            assert built["mesh"].shape == {"dp": 1, "tp": 1}
+            assert built["mesh"].size == 1
+            return
         assert built["trainer"].cfg.num_planes == 25
         assert built["pipeline"].feature_set == "df"
         return
-    error = ValueError if "df_policy" in argv else NotImplementedError
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError, match=match):
         train_server_torch.main(base + argv)
 
 
 def test_train_server_refuses_a_mesh_over_several_cards(tmp_path,
                                                         monkeypatch):
+    """`--use_mesh 1` with four visible cards spawns four ranks, one per
+    card, with tp = 2 (the JAX script's pick for an even count); each
+    rank gets the command line.  The spawn is stubbed here."""
+    spawned = {}
     monkeypatch.setattr(train_server_torch, "resolve_device",
                         lambda d: torch.device("cuda", 0))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="--use_mesh over 4"):
-        train_server_torch.main(["--ckpt_dir", str(tmp_path)])
+    monkeypatch.setattr(train_server_torch.mp, "spawn",
+                        lambda fn, args, nprocs: spawned.update(
+                            fn=fn, args=args, nprocs=nprocs))
+    argv = ["--ckpt_dir", str(tmp_path)]
+    assert train_server_torch.main(argv) is None
+    assert spawned["nprocs"] == 4
+    assert spawned["fn"] is train_server_torch._local_rank
+    world, tp, port, rank_argv = spawned["args"]
+    assert (world, tp, rank_argv) == (4, 2, argv) and port > 0
 
 
 def _small_state(step):

@@ -465,3 +465,70 @@ def test_self_atari_and_eyes_on_card_equal_cpu(dev):
                tactics.true_eye_mask):
         assert torch.equal(fn(core.stones.to(dev), colors.to(dev),
                               size).cpu(), fn(core.stones, colors, size))
+
+
+def _dp2_rank(rank, world, port, out_path):
+    """One of two ranks on cuda:0 over gloo: two dp = 2 fp32 steps of a
+    9x9 net on its half of each batch; rank 0 writes the gathered state."""
+    from elf_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+    )
+    from elf_tpu_torch.parallel.mesh import (
+        batch_sharding,
+        gather_state,
+        make_mesh,
+        make_sharded_train_step,
+        shard_state,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    maybe_initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                 backend="gloo")
+    _, state, card, on_card = _learner_pair(False, "cuda",
+                                            grad_clip_norm=0.5)
+    mesh = make_mesh(world, tp=1)
+    step, shardings = make_sharded_train_step(card, mesh, on_card)
+    shard = shard_state(on_card, shardings)
+    rows = batch_sharding(mesh, 8)
+    losses = []
+    for i in range(2):
+        feats, pi, winner = (t[rows].cuda() for t in _train_batch(i))
+        shard, stats = step(shard, feats, pi, winner)
+        losses.append(float(stats["loss/total"]))
+    full = gather_state(shard, shardings)
+    if rank == 0:
+        torch.save({"losses": losses,
+                    "sd": {k: v.cpu() for k, v in
+                           full.net.state_dict().items()}}, out_path)
+    torch.distributed.destroy_process_group()
+
+
+def test_dp2_step_two_ranks_on_one_card_match_one_rank(dev, tmp_path,
+                                                       monkeypatch):
+    """Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one card)
+    take dp = 2 steps with the batch statistics of the whole batch; the
+    losses, parameters and BN statistics hold the one-rank steps on the
+    card within 1e-4 (fp32, TF32 off)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    out = str(tmp_path / "dp2.pt")
+    mp.start_processes(_dp2_rank, args=(2, port, out), nprocs=2,
+                       start_method="spawn")
+    res = torch.load(out, weights_only=False)
+    _, _, card, b = _learner_pair(False, dev, grad_clip_norm=0.5)
+    step = card.make_train_step()
+    for i in range(2):
+        b, stats = step(b, *(t.to(dev) for t in _train_batch(i)))
+        assert abs(float(stats["loss/total"]) - res["losses"][i]) < 1e-4
+    for n, x in b.net.state_dict().items():
+        torch.testing.assert_close(res["sd"][n], x.cpu(), atol=1e-4, rtol=0,
+                                   msg=n)

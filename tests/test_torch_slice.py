@@ -200,10 +200,11 @@ def test_unported_actor_options_raise(option, tmp_path, monkeypatch):
 @pytest.mark.parametrize("option", ["remat", "mesh", "feature_set=df",
                                     "train_mode=offline"])
 def test_unported_learner_options_raise(option, tmp_path):
-    """`remat`, df batches and the offline train mode are ported
+    """`remat`, df batches, the offline train mode and the mesh are ported
     (tests/test_torch_remat.py, tests/test_torch_df.py,
-    tests/test_torch_offline.py): a remat net and a df pipeline build, and
-    an offline runner takes a supervised step; a mesh still raises."""
+    tests/test_torch_offline.py, tests/test_torch_parallel.py): a remat net
+    and a df pipeline build, an offline runner takes a supervised step, and
+    a runner on the 1 x 1 mesh takes the plain step."""
     from elf_tpu_torch.training.pipeline import TrainingPipeline
     from elf_tpu_torch.training.replay import ReplayBuffer
     from elf_tpu_torch.training.runner import LearnerRunner
@@ -234,9 +235,16 @@ def test_unported_learner_options_raise(option, tmp_path):
         stats = runner.run_minibatch()
         assert "acc/top1" in stats and runner.version() == 1
         return
-    with pytest.raises(NotImplementedError):
-        LearnerRunner(trainer, TrainingPipeline(replay, SIZE),
-                      str(tmp_path), trainer.opts, mesh=object())
+    from elf_tpu_torch.parallel import make_mesh
+
+    runner = LearnerRunner(trainer, TrainingPipeline(replay, SIZE),
+                           str(tmp_path), trainer.opts, mesh=make_mesh(1))
+    assert runner.sync is None and runner.save_enabled
+    feats = torch.zeros((4, SIZE, SIZE, 18))
+    pi = torch.full((4, SIZE * SIZE + 1), 1.0 / (SIZE * SIZE + 1))
+    runner.state, stats = runner._train_step(runner.state, feats, pi,
+                                             torch.ones(4))
+    assert runner.version() == 1 and "loss/total" in stats
 
 
 def test_policy_quantization_matches_jax():
