@@ -133,22 +133,48 @@ Phases:
      cut at 2 moves; every move legal on host replay, every record on
      rank 0 in board order, each rank's launches those of an unsharded
      actor (the same calls over its boards);
- 14. profile: one more slice move under torch.profiler, device time by
+ 14. tools: the tools layer at 19x19 20b256c with the committed weights.
+     (a) A ladder suite written from the four golden 19x19 games (32
+     probes at moves 10-150), the ladder module pointed at it:
+     `batch_replay` of the games (no illegal move, the C replayer's final
+     boards, one `step_analysis` launch a ply), an oracle evaluator
+     scoring every probe, the export's fp32 scorecard on the card picking
+     the CPU's move wherever the top two legal log-probabilities differ by
+     more than 1e-3, the bf16 scorecard timed, `ladder_bench_torch.main`
+     raw and at 64 rollouts on 8 probes (exact launches),
+     `classify_suite` equal to a classification from the plain replayer.
+     (b) `scripts/eval_match_torch.py` (4 games) and
+     `scripts/elo_progression_torch.py` (a `save-648.bin` link to the
+     export, `--include_init` the init, 4 games; then `--pairs 648:0`) as
+     processes side by side, policy-only whole games, both kernels
+     launched in each;
+     then `head_to_head` on a pair-eval search actor in this process (B =
+     8, 16 rollouts, games cut at 24 moves): exact launches, every game
+     legal on host replay.  (c) `scripts/demo_train_9x9_torch.py` at its
+     default widths for 14 iterations (9x9 games end by ply 161, so it
+     trains; 8 rollouts): JSON lines, finite losses, the init the final
+     eval plays equal to the init as drawn.  (d)
+     `scripts/profile_mcts_torch.py` at B = 16 (with a trace, kept
+     gzipped), 1 and 32, 2 timed calls: full, net-only and tree-only
+     times, exact launches;
+ 15. profile: one more slice move under torch.profiler, device time by
      kernel group, with its own launch counts.
 
 The kernel phase times B = 1 too, the batch of the play surface.  Prints
 the card's nvidia-smi line, one JSON line describing the kernels
 (`launches` is the slice's count, `launches_train`, `launches_fleet`,
 `launches_play`, `launches_production`, `launches_df`,
-`launches_offline` and `launches_parallel` those of the train, fleet,
-play, production, df, offline and parallel phases), and last
+`launches_offline`, `launches_parallel` and `launches_tools` those of the
+train, fleet, play, production, df, offline, parallel and tools phases),
+and last
 `{"ok": true, "device": {...}}`.  Exits non-zero, before printing any result, when CUDA is
 unavailable or the port is not beside this file.
 A copy of the numbers goes to chiprun_out/chip_smoke.json, the fleet's
 logs to chiprun_out/fleet/, the play processes' output and tree dumps to
 chiprun_out/play/, the offline phase's processes' output to
 chiprun_out/offline/, the parallel phase's server and client logs to
-chiprun_out/parallel/.
+chiprun_out/parallel/, the tools phase's output and trace to
+chiprun_out/tools/.
 """
 
 from __future__ import annotations
@@ -2778,6 +2804,583 @@ def parallel_phase(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the tools layer (ladder suite, match, Elo, demo, search profile)
+# ---------------------------------------------------------------------------
+
+# the tools phase: the probes' move numbers in each golden game, the match
+# and Elo processes' games, the in-process search match (boards, rollouts,
+# move cutoff), the demo's iterations and rollouts (9x9 games end by ply
+# 161, so 14 iterations of 12 moves train at least once; rollouts cut from
+# 48), the profile's batches and timed calls, and the top-two
+# log-probability gap above which the card's fp32 scorecard must pick the
+# CPU's move
+TOOLS_PROBE_MOVES = (10, 20, 35, 50, 70, 90, 120, 150)
+TOOLS_GAMES = 4
+TOOLS_H2H_B, TOOLS_H2H_ROLLOUTS, TOOLS_H2H_CUTOFF = 8, 16, 24
+TOOLS_DEMO_ITERS, TOOLS_DEMO_ROLLOUTS = 14, 8
+TOOLS_PROFILE_B, TOOLS_PROFILE_ITERS = (16, 1, 32), 2
+TOOLS_GAP = 1e-3
+
+
+def run_scripts(runs, timeout_s: float = 900):
+    """`python <rel> args` for each (rel, args, log_name) of `runs`, all
+    started together from the repository root; each one's output goes to
+    chiprun_out/tools/<log_name>.  Fails the run when one exits non-zero
+    or runs past `timeout_s` (every process is stopped first).  Returns
+    [(stdout, stderr, wall seconds)] in the order of `runs`."""
+    logs = ROOT / "chiprun_out" / "tools"
+    procs, files = [], []
+    try:
+        t0 = time.perf_counter()
+        for rel, args, log_name in runs:
+            files += [open(logs / f"{log_name}.out", "w"),
+                      open(logs / f"{log_name}.err", "w")]
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / rel), *args], cwd=ROOT,
+                stdout=files[-2], stderr=files[-1]))
+        walls = [None] * len(procs)
+        while None in walls:
+            time.sleep(0.2)
+            for i, proc in enumerate(procs):
+                if walls[i] is None and proc.poll() is not None:
+                    walls[i] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > timeout_s:
+                fail(f"tools: {[r[0] for r in runs]} ran past {timeout_s} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in files:
+            f.close()
+    out = []
+    for (rel, _, log_name), proc, wall in zip(runs, procs, walls):
+        stdout = (logs / f"{log_name}.out").read_text()
+        stderr = (logs / f"{log_name}.err").read_text()
+        if proc.returncode != 0:
+            fail(f"tools: {rel} exited with {proc.returncode}\n"
+                 f"{stderr[-3000:]}")
+        out.append((stdout, stderr, wall))
+    return out
+
+
+def load_script_module(rel: str):
+    """A script of the repository as a module, its `main` not run."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "tools_" + Path(rel).stem, ROOT / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_main(rel: str, argv):
+    """`main(argv)` of a script of the repository in this process, its
+    standard output and error captured.  Returns (return value, stdout,
+    stderr)."""
+    import contextlib
+    import io
+
+    mod = load_script_module(rel)
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = mod.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def build_ladder_suite(root: Path):
+    """A suite in `root` from the golden 19x19 games without start
+    stones: ladder/g<i>.sgf and a ladder_list of probes at
+    TOOLS_PROBE_MOVES.  Returns the games' move lists."""
+    import gzip
+
+    from elf_tpu_torch.sgf import game_from_moves, serialize_sgf
+
+    with gzip.open(ROOT / "tests" / "golden" / "ref_traj_19.jsonl.gz",
+                   "rt") as f:
+        rows = [json.loads(line) for line in f]
+    games = [[int(a) for a in r["actions"]] for r in rows
+             if set(r["start_stones"]) == {"0"}]
+    (root / "ladder").mkdir(parents=True)
+    lines = []
+    for i, moves in enumerate(games):
+        (root / "ladder" / f"g{i}.sgf").write_text(
+            serialize_sgf(game_from_moves(moves, 19)))
+        lines += [f"g{i}.sgf {n}\n" for n in TOOLS_PROBE_MOVES]
+    (root / "ladder_list").write_text("".join(lines))
+    return games
+
+
+def probe_moves(res, probes):
+    """The move a LadderResult picked at each (sgf_path, n, expected)
+    probe, in GTP: the expected move unless it is among the failures."""
+    from elf_tpu_torch.env.go.coords import flat_to_gtp
+
+    missed = {(f[0], f[1]): f[3] for f in res.failures}
+    return [missed.get((Path(p).name, n), flat_to_gtp(e, 19))
+            for p, n, e in probes]
+
+
+def tools_ladder(card: str, suite: Path, games) -> dict:
+    """(a) The ladder tools at 19x19 20b256c on the card, on the suite the
+    phase built from the golden games."""
+    from elf_tpu_torch.env.go import kernels
+    from elf_tpu_torch.env.go import state as gostate
+    from elf_tpu_torch.models.resnet import (
+        ModelConfig,
+        eval_fn_builder,
+        load_model,
+    )
+    from elf_tpu_torch.native.ladder import read_ladder
+    from elf_tpu_torch.native.replayer import (
+        replay_to_snapshots,
+        replay_to_snapshots_ref,
+    )
+    from elf_tpu_torch.tools import ladder
+
+    export = str(ROOT / "runs/prove19/export-best.bin")
+    out = {}
+    launches = {"step_analysis": 0, "analyze_libs": 0}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    # batch_replay of every game: legal, the C replayer's boards, L launches
+    L = max(len(g) for g in games)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    illegal, st = ladder.batch_replay(games, 19, device="cuda")
+    torch.cuda.synchronize()
+    out["batch_replay_s"] = time.perf_counter() - t0
+    got = kernels.launch_counts()
+    add(got)
+    if illegal.any():
+        fail(f"tools: batch_replay found illegal golden moves at "
+             f"{np.argwhere(illegal).tolist()}")
+    for i, moves in enumerate(games):
+        ref = torch.from_numpy(replay_to_snapshots(moves, 19)[-1])
+        if not torch.equal(st.core.stones[i].cpu(), ref):
+            fail(f"tools: batch_replay's final board {i} differs from the "
+                 "C replayer's")
+    if got != {"step_analysis": L, "analyze_libs": 0}:
+        fail(f"tools: batch_replay launched {got}, expected {L} "
+             "step_analysis")
+
+    old_suite = ladder.DEFAULT_SUITE
+    ladder.DEFAULT_SUITE = str(suite)
+    try:
+        entries = ladder.load_suite()
+        moves_of = {p: ladder.load_moves(p)[0] for p, _ in entries}
+        probes = [(p, n, moves_of[p][n]) for p, n in entries
+                  if n < len(moves_of[p])]
+        P = len(probes)
+        L_probe = max(n for _, n, _ in probes)
+
+        # the oracle evaluator scores every probe
+        expected = torch.tensor([e for _, _, e in probes], device="cuda")
+
+        def oracle(feats, to_play):
+            lp = torch.full((feats.shape[0], 362), -1e6, device=feats.device)
+            lp[torch.arange(P, device=feats.device), expected] = 0.0
+            return lp, torch.zeros(feats.shape[0], device=feats.device)
+
+        kernels.reset_launch_counts()
+        res = ladder.ladder_policy_scorecard(oracle, device="cuda")
+        got = kernels.launch_counts()
+        add(got)
+        if (res.matched, res.total) != (P, P):
+            fail(f"tools: the oracle scored {res.matched}/{res.total} of {P}")
+        if got != {"step_analysis": L_probe, "analyze_libs": 1}:
+            fail(f"tools: the scorecard launched {got}, expected "
+                 f"{L_probe} step_analysis + 1 analyze_libs")
+
+        # the export in fp32 on the card against the CPU
+        cfg32 = ModelConfig(use_bf16=False)
+        seen = {}
+
+        def capture(net, key):
+            def eval_fn(feats, to_play):
+                lp, v = net(feats)
+                seen[key] = lp.float().cpu()
+                return lp, v
+            return eval_fn
+
+        kernels.reset_launch_counts()
+        card32 = ladder.ladder_policy_scorecard(
+            capture(load_model(export, cfg32, "cuda"), "cuda"), device="cuda")
+        add(kernels.launch_counts())
+        cpu32 = ladder.ladder_policy_scorecard(
+            capture(load_model(export, cfg32, "cpu"), "cpu"), device="cpu")
+        _, st_cpu = ladder.batch_replay([moves_of[p][:n] for p, n, _ in probes],
+                                        19, device="cpu")
+        lm = gostate.legal_moves(st_cpu, 19)
+        top2 = torch.where(lm, seen["cpu"], -float("inf")).topk(2, dim=1)[0]
+        clear = (top2[:, 0] - top2[:, 1] > TOOLS_GAP).tolist()
+        a, b = probe_moves(card32, probes), probe_moves(cpu32, probes)
+        differ = [i for i in range(P) if clear[i] and a[i] != b[i]]
+        if differ or sum(clear) == 0:
+            fail(f"tools: the fp32 scorecard on the card picks other moves "
+                 f"than the CPU at probes {differ} ({sum(clear)} of {P} "
+                 f"have a top-two gap > {TOOLS_GAP})")
+        out["fp32"] = dict(matched=card32.matched, total=card32.total,
+                           cpu_matched=cpu32.matched, compared=sum(clear),
+                           max_abs_log_pi_diff=float(
+                               (seen["cuda"] - seen["cpu"]).abs().max()))
+
+        # bf16, timed (host clock up to a synchronise, after a warm-up)
+        eval16 = eval_fn_builder(load_model(export, ModelConfig(), "cuda"))
+        kernels.reset_launch_counts()
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            card16 = ladder.ladder_policy_scorecard(eval16, device="cuda")
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        add(kernels.launch_counts())
+        out["bf16"] = dict(matched=card16.matched, total=card16.total,
+                           scorecard_ms=[t * 1e3 for t in times[1:]],
+                           first_ms=times[0] * 1e3)
+
+        # ladder_bench_torch in this process, raw policy then a search
+        bench = {}
+        for mode, extra, n_probes in (
+                ("raw_policy", [], P),
+                (f"mcts{SLICE_ROLLOUTS}",
+                 ["--num_rollouts", str(SLICE_ROLLOUTS), "--limit", "8"], 8)):
+            kernels.reset_launch_counts()
+            _, stdout, stderr = run_main(
+                "scripts/ladder_bench_torch.py",
+                ["--load", export, "--num_block", "20", "--dim", "256",
+                 *extra])
+            got = kernels.launch_counts()
+            add(got)
+            (ROOT / "chiprun_out" / "tools" / f"ladder_bench_{mode}.log"
+             ).write_text(stdout + "\n----- stderr -----\n" + stderr)
+            row = json.loads(stdout.strip().splitlines()[-1])
+            if (row["total"], row["mode"], row["weights"]) != (
+                    n_probes, mode, "ckpt"):
+                fail(f"tools: ladder_bench printed {row}")
+            replayed = sum(n for _, n, _ in probes[:n_probes])
+            rollouts = SLICE_ROLLOUTS if extra else 0
+            want = {"step_analysis": replayed + n_probes * rollouts,
+                    "analyze_libs": n_probes}
+            if got != want:
+                fail(f"tools: ladder_bench {mode} launched {got}, expected "
+                     f"{want}")
+            bench[mode] = dict(row, launches=got)
+        out["ladder_bench"] = bench
+
+        # classify_suite (host ladder reader) against a classification from
+        # the plain replayer
+        t = ladder.classify_suite()
+        ref = []
+        for p, n in entries:
+            moves = moves_of[p]
+            board = (replay_to_snapshots_ref(moves[:n - 1], 19)[-1]
+                     if n > 1 else np.zeros(361, np.int8))
+            ref.append((Path(p).name, n, moves[n - 1]) + read_ladder(
+                board, moves[n - 1], 1 if (n - 1) % 2 == 0 else 2, 19))
+        mine = [(r.sgf, r.move_number, r.played, r.classification, r.depth)
+                for r in t]
+        if mine != ref:
+            fail("tools: classify_suite differs from the plain replayer's "
+                 "classification")
+        out["classify"] = {c: sum(r.classification == c for r in t)
+                           for c in ("capture", "doomed_escape", "none")}
+    finally:
+        ladder.DEFAULT_SUITE = old_suite
+    out.update(probes=P, launches=launches)
+    log(f"tools: ladder suite of {len(games)} golden games, {P} probes: "
+        f"batch_replay {out['batch_replay_s'] * 1e3:.1f} ms for {L} plies; "
+        f"export fp32 {card32.matched}/{P} on the card, {cpu32.matched}/{P} "
+        f"on the CPU ({sum(clear)} probes compared, max |dlog_pi| "
+        f"{out['fp32']['max_abs_log_pi_diff']:.2e}); bf16 {card16.matched}/"
+        f"{P}, scorecard {np.median(times[1:]) * 1e3:.1f} ms; ladder_bench "
+        f"raw {bench['raw_policy']['matched']}/{P} in "
+        f"{bench['raw_policy']['wall_s']} s, mcts "
+        f"{bench[f'mcts{SLICE_ROLLOUTS}']['matched']}/8 in "
+        f"{bench[f'mcts{SLICE_ROLLOUTS}']['wall_s']} s; classify "
+        f"{out['classify']}, on {card}")
+    return out
+
+
+def tools_match(card: str, work: Path) -> dict:
+    """(b) The match and Elo scripts as processes side by side (the
+    committed export against its random init, policy-only, whole games),
+    then `head_to_head` on a pair-eval search actor in this process."""
+    from elf_tpu_torch.env.go import kernels
+    from elf_tpu_torch.env.go.coords import sgf_string_to_moves
+    from elf_tpu_torch.models.resnet import ModelConfig, load_model
+    from elf_tpu_torch.search.mcts import MCTSConfig
+    from elf_tpu_torch.selfplay.actor import (
+        ActorConfig,
+        SelfplayActor,
+        make_pair_eval_builder,
+    )
+    from elf_tpu_torch.tools.match import elo_diff, head_to_head
+
+    export = str(ROOT / "runs/prove19/export-best.bin")
+    init = str(ROOT / "runs/prove19/init_params.bin")
+    width = ["--board_size", "19", "--num_block", "20", "--dim", "256"]
+    out = {}
+    launches = {"step_analysis": 0, "analyze_libs": 0}
+
+    def add(counts, what):
+        if min(counts.values()) <= 0:
+            fail(f"tools: {what} launched {counts}")
+        for k in launches:
+            launches[k] += counts[k]
+
+    ckpts = work / "ckpts"
+    ckpts.mkdir()
+    (ckpts / "save-648.bin").symlink_to(export)
+    elo_args = ["--ckpt_dir", str(ckpts), "--include_init", init,
+                "--board_size", "19", "--blocks", "20", "--dim", "256",
+                "--games_per_pair", str(TOOLS_GAMES), "--num_rollouts", "0"]
+    # the three processes side by side (each is host-bound on its own core)
+    match, elo, pairs = run_scripts([
+        ("scripts/eval_match_torch.py",
+         ["--a", export, "--b", init, *width, "--num_eval_games",
+          str(TOOLS_GAMES), "--num_rollouts", "0"], "eval_match"),
+        ("scripts/elo_progression_torch.py", elo_args, "elo_progression"),
+        ("scripts/elo_progression_torch.py", [*elo_args, "--pairs", "648:0"],
+         "elo_pairs")])
+
+    stdout, stderr, wall = match
+    m = re.fullmatch(r"A=export-best\.bin vs B=init_params\.bin: (\d+)/(\d+) "
+                     r"= (\d\.\d{3})  elo_diff=([+-]\d+\.\d)  \(.*\)\n", stdout)
+    lines = stderr.strip().splitlines()
+    games = [l for l in lines if l.startswith("game ")]
+    if not m or int(m.group(2)) != TOOLS_GAMES or len(games) != TOOLS_GAMES:
+        fail(f"tools: eval_match printed {stdout!r}")
+    summ = json.loads(lines[-1])
+    add(summ["kernel_launches"], "eval_match")
+    out["eval_match"] = dict(line=stdout.strip(), games=games, wall_s=wall,
+                             launches=summ["kernel_launches"])
+
+    stdout, stderr, wall = elo
+    rows = [json.loads(l) for l in stdout.splitlines()]
+    if (len(rows) != 2 or rows[0] != {"step": 0, "elo": 0.0, "anchor": True}
+            or (rows[1]["step"], rows[1]["vs_step"], rows[1]["n"])
+            != (648, 0, TOOLS_GAMES)
+            or rows[1]["elo_delta"] != round(elo_diff(
+                rows[1]["wins"] / TOOLS_GAMES), 1)):
+        fail(f"tools: elo_progression printed {stdout!r}")
+    summ = json.loads(stderr.strip().splitlines()[-1])
+    add(summ["kernel_launches"], "elo_progression")
+    out["elo_progression"] = dict(rows=rows, wall_s=wall,
+                                  launches=summ["kernel_launches"])
+
+    stdout, stderr, wall = pairs
+    (row,) = [json.loads(l) for l in stdout.splitlines()]
+    if (row["n"] != TOOLS_GAMES or not row["direct"]
+            or row["wins_as_black"] + row["wins_as_white"] != row["wins"]):
+        fail(f"tools: elo_progression --pairs printed {stdout!r}")
+    summ = json.loads(stderr.strip().splitlines()[-1])
+    add(summ["kernel_launches"], "elo_progression --pairs")
+    out["elo_pairs"] = dict(row=row, wall_s=wall,
+                            launches=summ["kernel_launches"])
+
+    # the search path in this process: B boards, games cut at
+    # TOOLS_H2H_CUTOFF moves, each half played in calls of 16 moves
+    cfg = ModelConfig()
+    a_net = load_model(export, cfg, "cuda")
+    b_net = load_model(init, cfg, "cuda")
+    actor = SelfplayActor(
+        ActorConfig(board_size=19, batch=TOOLS_H2H_B, policy_distri_cutoff=0,
+                    resign_thres=0.0, never_resign_prob=1.0,
+                    move_cutoff=TOOLS_H2H_CUTOFF),
+        MCTSConfig(num_rollouts=TOOLS_H2H_ROLLOUTS,
+                   rollouts_per_batch=SLICE_PER_BATCH, root_epsilon=0.0),
+        make_pair_eval_builder(lambda net, bs, feats: net(feats)), seed=5,
+        device="cuda")
+    sink = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    wins, total = head_to_head(actor, (a_net, None), (b_net, None),
+                               TOOLS_H2H_B, record_sink=sink)
+    torch.cuda.synchronize()
+    h2h_s = time.perf_counter() - t0
+    got = kernels.launch_counts()
+    add(got, "head_to_head")
+    # every half plays whole calls of 16 moves until its games are cut
+    moves = 2 * 16 * -(-TOOLS_H2H_CUTOFF // 16)
+    want = {"step_analysis": moves * (TOOLS_H2H_ROLLOUTS + 1),
+            "analyze_libs": moves}
+    if total != 2 * TOOLS_H2H_B or got != want:
+        fail(f"tools: head_to_head played {total} games with launches "
+             f"{got}, expected {2 * TOOLS_H2H_B} and {want}")
+    played = [sgf_string_to_moves(r.result.content, 19) for r, _ in sink]
+    if any(len(p) != TOOLS_H2H_CUTOFF for p in played):
+        fail(f"tools: head_to_head games of {[len(p) for p in played]} moves")
+    replay_is_legal(played, 19)
+    out["head_to_head"] = dict(wins=wins, total=total, seconds=h2h_s,
+                               moves=moves, launches=got)
+    out["launches"] = launches
+    log(f"tools: eval_match {out['eval_match']['line']} "
+        f"({out['eval_match']['wall_s']:.1f} s process wall); elo "
+        f"{rows[1]} ({out['elo_progression']['wall_s']:.1f} s); --pairs "
+        f"{row} ({out['elo_pairs']['wall_s']:.1f} s; the three side by "
+        f"side); head_to_head B "
+        f"{TOOLS_H2H_B}, {TOOLS_H2H_ROLLOUTS} rollouts, cut at "
+        f"{TOOLS_H2H_CUTOFF}: {wins}/{total} in {h2h_s:.1f} s, launches "
+        f"{got}; on {card}")
+    return out
+
+
+def tools_demo(card: str, work: Path) -> dict:
+    """(c) demo_train_9x9_torch in this process at its default widths (3
+    blocks, 48 channels, 96 boards; TOOLS_DEMO_ROLLOUTS rollouts): its
+    JSON lines, a finite loss, and the random init the final eval plays
+    against equal to the init as drawn."""
+    import contextlib
+    import io
+
+    from elf_tpu_torch.config import TrainOptions
+    from elf_tpu_torch.env.go import kernels
+    from elf_tpu_torch.models.resnet import ModelConfig
+    from elf_tpu_torch.tools import match
+    from elf_tpu_torch.training.trainer import Trainer
+
+    mod = load_script_module("scripts/demo_train_9x9_torch.py")
+    played = []
+
+    def recording(actor, a_state, b_state, games_per_half, **kw):
+        played.append((copy.deepcopy(a_state[0]), copy.deepcopy(b_state[0])))
+        return match.head_to_head(actor, a_state, b_state, games_per_half,
+                                  **kw)
+
+    mod.head_to_head = recording
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        mod.main(["--iters", str(TOOLS_DEMO_ITERS), "--rollouts",
+                  str(TOOLS_DEMO_ROLLOUTS), "--final_eval", "policy",
+                  "--out", str(work / "demo9")])
+    wall = time.perf_counter() - t0
+    got = kernels.launch_counts()
+    text = buf.getvalue()
+    (ROOT / "chiprun_out" / "tools" / "demo_train_9x9.log").write_text(text)
+    try:
+        lines = [json.loads(l) for l in text.splitlines()]
+    except ValueError:
+        fail(f"tools: the demo printed a line that is not JSON:\n{text}")
+    losses = [l["loss"] for l in lines if "loss" in l]
+    if not losses or not all(np.isfinite(losses)):
+        fail(f"tools: the demo's losses {losses}")
+    final = lines[-1]
+    if not final.get("final") or "policy_only_winrate" not in final:
+        fail(f"tools: the demo's summary {final}")
+    init = Trainer(ModelConfig(board_size=9, num_block=3, dim=48),
+                   TrainOptions(num_block=3, dim=48), device="cuda"
+                   ).init_state(torch.Generator().manual_seed(0)).net
+    (trained, random0), = played
+    for (name, x), y in zip(init.state_dict().items(),
+                            random0.state_dict().values()):
+        if not torch.equal(x, y):
+            fail(f"tools: the demo's init snapshot changed at {name}")
+    if all(torch.equal(x, y) for x, y in zip(
+            init.state_dict().values(), trained.state_dict().values())):
+        fail("tools: the demo's trained net equals its init")
+    if min(got.values()) <= 0:
+        fail(f"tools: the demo launched {got}")
+    log(f"tools: demo_train_9x9 {TOOLS_DEMO_ITERS} iterations at "
+        f"{TOOLS_DEMO_ROLLOUTS} rollouts: "
+        f"{lines[-2]['games']} games, step {lines[-2]['step']}, last loss "
+        f"{losses[-1]}, final {final}, {wall:.1f} s, launches {got}, on "
+        f"{card}")
+    return dict(lines=lines, wall_s=wall, launches=got)
+
+
+def tools_profile(card: str) -> dict:
+    """(d) profile_mcts_torch in this process at B = 16 (its default, with
+    a trace, kept gzipped in chiprun_out/tools/), 1 and 32: the three
+    variants' times and the launch counts the code fixes."""
+    import gzip
+    import shutil
+
+    out = {"runs": []}
+    launches = {"step_analysis": 0, "analyze_libs": 0}
+    trace_dir = ROOT / "build" / "tools_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    for B in TOOLS_PROFILE_B:
+        argv = ["--B", str(B), "--iters", str(TOOLS_PROFILE_ITERS)]
+        traced = B == TOOLS_PROFILE_B[0]
+        if traced:
+            argv += ["--trace_dir", str(trace_dir)]
+        rc, stdout, stderr = run_main("scripts/profile_mcts_torch.py", argv)
+        row = json.loads(stdout)
+        got = json.loads(stderr.strip().splitlines()[-1])["kernel_launches"]
+        calls = TOOLS_PROFILE_ITERS + 1
+        want = {
+            "full": {"step_analysis": (calls + traced) * SLICE_ROLLOUTS,
+                     "analyze_libs": calls + traced},
+            "nn_only": {"step_analysis": 0, "analyze_libs": 0},
+            "tree_only": {"step_analysis": calls * SLICE_ROLLOUTS,
+                          "analyze_libs": calls},
+        }
+        if rc != 0 or got != want or row["B"] != B:
+            fail(f"tools: profile_mcts B {B}: rc {rc}, launches {got}, "
+                 f"expected {want}")
+        for v in got.values():
+            for k in launches:
+                launches[k] += v[k]
+        out["runs"].append(dict(row, launches=got))
+        log(f"tools: profile_mcts B {B}: full {row['t_full_ms']} ms, "
+            f"nn_only {row['t_nn_only_ms']} ms, tree_only "
+            f"{row['t_tree_only_ms']} ms, nn_fraction {row['nn_fraction']}, "
+            f"{row['rollouts_per_s_full']} rollouts/s, on {card}")
+    traces = sorted(trace_dir.glob("*.json"))
+    if len(traces) != 1 or traces[0].stat().st_size == 0:
+        fail(f"tools: profile_mcts wrote traces {traces}")
+    kept = ROOT / "chiprun_out" / "tools" / (traces[0].name + ".gz")
+    with open(traces[0], "rb") as f, gzip.open(kept, "wb") as g:
+        shutil.copyfileobj(f, g)
+    log(f"tools: profile_mcts trace {traces[0].stat().st_size} bytes, kept "
+        f"as {kept.relative_to(ROOT)} ({kept.stat().st_size} bytes)")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    out.update(trace=str(kept.relative_to(ROOT)), launches=launches)
+    return out
+
+
+def tools_phase(card: str) -> dict:
+    """The tools layer at 19x19 20b256c with the committed weights: (a)
+    the ladder tools on a suite built from the golden games, (b) the match
+    and Elo scripts as processes and a search match in this process, (c)
+    the 9x9 learning demo, (d) the search profile at B = 16, 1 and 32.
+    Launch counts: the sum of the parts' (this process's and the
+    processes' exit summaries)."""
+    import shutil
+
+    phase_t0 = time.perf_counter()
+    shutil.rmtree(ROOT / "chiprun_out" / "tools", ignore_errors=True)
+    (ROOT / "chiprun_out" / "tools").mkdir(parents=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tools_"))
+    try:
+        games = build_ladder_suite(work / "suite")
+        out = {"card": card,
+               "ladder": tools_ladder(card, work / "suite", games),
+               "match": tools_match(card, work),
+               "demo": tools_demo(card, work),
+               "profile": tools_profile(card)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in
+                              ("ladder", "match", "demo", "profile"))
+                       for k in ("step_analysis", "analyze_libs")}
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log(f"tools: launches {out['launches']}; the phase's wall time "
+        f"{out['phase_s']:.1f} s (host clock), on {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2820,6 +3423,7 @@ def main() -> int:
     result["df"] = df_phase(card)
     result["offline"] = offline_phase(card)
     result["parallel"] = parallel_phase(card)
+    result["tools"] = tools_phase(card)
     result["profile"] = profile_phase(card, net)
 
     rows = []
@@ -2842,6 +3446,7 @@ def main() -> int:
             "launches_df": result["df"]["launches"][name],
             "launches_offline": result["offline"]["launches"][name],
             "launches_parallel": result["parallel"]["launches"][name],
+            "launches_tools": result["tools"]["launches"][name],
             "max_abs_err": k["worst"][name], "ms": t["union-find"]["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None,

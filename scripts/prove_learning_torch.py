@@ -30,7 +30,6 @@ same options, protocol, output files and return code, on `elf_tpu_torch`,
 plus `--device` (default `cuda`; `cpu` runs the plain PyTorch path) and
 `--use_bf16`.  `--out` has no default: checkpoints cross between the two
 packages, so a shared directory would resume the other script's run.
-`--ladder_every` is not ported yet and raises when it is not 0.
 
 On one GPU:
 
@@ -130,8 +129,8 @@ def parse_args(argv=None):
                          "dip; 0 = off")
     ap.add_argument("--ladder_every", type=int, default=0,
                     help="ladder-suite raw-policy scorecard every N "
-                         "periodic evals; not ported yet, only 0 (off) "
-                         "is accepted")
+                         "periodic evals (19x19 only; "
+                         "<out>/ladder_scorecard.jsonl); 0 = off")
     ap.add_argument("--export", type=int, default=0,
                     help="1 = maintain durable bf16 params-only exports in "
                          "--out (init_params.bin / export-latest.bin / "
@@ -147,8 +146,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.ladder_every != 0:
-        raise NotImplementedError("--ladder_every (tools/ladder.py)")
     device = resolve_device(args.device)
 
     size = args.board_size
@@ -290,6 +287,29 @@ def main(argv=None):
     if args.anchor_every > 0 and os.path.exists(anchor_path):
         anchor_state = load_checkpoint(anchor_path, template=runner.state)
 
+    # ladder-suite behavioural curve (19x19 suite only)
+    ladder_on = args.ladder_every > 0 and size == 19
+    scorecard_path = os.path.join(args.out, "ladder_scorecard.jsonl")
+    if ladder_on:
+        from elf_tpu_torch.tools.ladder import ladder_policy_scorecard
+
+        def ladder_score(st):
+            res = ladder_policy_scorecard(
+                lambda feats, to_play: eval_raw(st.net, None, feats),
+                device=device,
+            )
+            return res.matched, res.total
+
+        if not os.path.exists(scorecard_path):
+            m0, t0_ = ladder_score(state0)
+            with open(scorecard_path, "a") as f:
+                f.write(json.dumps({
+                    "step": 0, "games": 0, "matched": m0, "total": t0_,
+                    "accuracy": round(m0 / max(t0_, 1), 4),
+                    "weights": "init",
+                }) + "\n")
+            print(f"# ladder baseline (init): {m0}/{t0_}", flush=True)
+
     wr = WinRate()
     t0 = time.time() - progress["wall"]
     last_beat = time.time()
@@ -365,6 +385,17 @@ def main(argv=None):
                 # advance the anchor to the current net
                 anchor_state = snapshot_state()
                 save_params_checkpoint(anchor_path, anchor_state)
+            if ladder_on and progress["eval_idx"] % args.ladder_every == 0:
+                lm_, lt_ = ladder_score(snapshot_state())
+                point.update({"ladder_matched": lm_, "ladder_total": lt_})
+                with open(scorecard_path, "a") as f:
+                    f.write(json.dumps({
+                        "step": int(runner.state.step),
+                        "games": progress["games"],
+                        "matched": lm_, "total": lt_,
+                        "accuracy": round(lm_ / max(lt_, 1), 4),
+                        "weights": "trained",
+                    }) + "\n")
             if args.export:
                 cur = snapshot_state()
                 save_params_checkpoint(latest_export, cur)

@@ -532,3 +532,31 @@ def test_dp2_step_two_ranks_on_one_card_match_one_rank(dev, tmp_path,
     for n, x in b.net.state_dict().items():
         torch.testing.assert_close(res["sd"][n], x.cpu(), atol=1e-4, rtol=0,
                                    msg=n)
+
+
+def test_batch_replay_on_card_equals_cpu(dev):
+    """`tools.ladder.batch_replay` of the golden 19x19 games (one cut
+    short, one with a stone on an occupied point) on the card: the illegal
+    mask and every field of the final state equal the CPU's, exactly, and
+    `step_analysis` launches once per ply of the longest game."""
+    from elf_tpu_torch.tools.ladder import batch_replay
+
+    with gzip.open(os.path.join(GOLDEN_DIR, "ref_traj_19.jsonl.gz"),
+                   "rt") as f:
+        games = [[int(a) for a in json.loads(line)["actions"]] for line in f
+                 if set(json.loads(line)["start_stones"]) == {"0"}]
+    games.append(games[0][:40])
+    games.append(games[1][:30] + [games[1][0]] + games[1][30:50])
+    kernels.reset_launch_counts()
+    ill_card, st_card = batch_replay(games, 19, device=dev)
+    assert kernels.launch_counts() == {
+        "step_analysis": max(len(g) for g in games), "analyze_libs": 0}
+    ill_cpu, st_cpu = batch_replay(games, 19, device="cpu")
+    assert (ill_card == ill_cpu).all()
+    assert np.argwhere(ill_card).tolist() == [[len(games) - 1, 30]]
+
+    def leaves(st):
+        return [t for x in st for t in (x if isinstance(x, tuple) else (x,))]
+
+    for a, b in zip(leaves(st_card), leaves(st_cpu)):
+        assert torch.equal(a.cpu(), b)
