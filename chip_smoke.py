@@ -157,15 +157,30 @@ Phases:
      `scripts/profile_mcts_torch.py` at B = 16 (with a trace, kept
      gzipped), 1 and 32, 2 timed calls: full, net-only and tree-only
      times, exact launches;
- 15. profile: one more slice move under torch.profiler, device time by
+ 15. bench: `bench_torch.py`'s stages in this process, at its full sizes
+     but for production self-play's budget.  Env: 19x19, B = 4096, 3
+     warm-up and 4 timed 64-step chunks (exactly 448 `step_analysis`
+     launches and no `analyze_libs`, no illegal draw), then one more chunk
+     whose first 256 boards, replayed on the host through the plain
+     versions with the chunk's reset, must end in the card's state bit for
+     bit, and one more under torch.profiler (device ops per step, host
+     copies and syncs per chunk, the card's busy share).  NN forwards at
+     batch 128 and 1024 against their bf16 bound, and one at 1024 under
+     torch.profiler; the B = 16 search at 64
+     rollouts (exact launches); the remat train step at batch 2048 (no
+     halving, finite stats, TFLOP/s as `bench.py` counts them, peak
+     memory); production self-play at B = 1024 and 64 rollouts (exact
+     launches, every move legal on host replay);
+ 16. profile: one more slice move under torch.profiler, device time by
      kernel group, with its own launch counts.
 
 The kernel phase times B = 1 too, the batch of the play surface.  Prints
 the card's nvidia-smi line, one JSON line describing the kernels
 (`launches` is the slice's count, `launches_train`, `launches_fleet`,
 `launches_play`, `launches_production`, `launches_df`,
-`launches_offline`, `launches_parallel` and `launches_tools` those of the
-train, fleet, play, production, df, offline, parallel and tools phases),
+`launches_offline`, `launches_parallel`, `launches_tools` and
+`launches_bench` those of the train, fleet, play, production, df, offline,
+parallel, tools and bench phases),
 and last
 `{"ok": true, "device": {...}}`.  Exits non-zero, before printing any result, when CUDA is
 unavailable or the port is not beside this file.
@@ -602,10 +617,15 @@ _NN_KERNEL_WORDS = ("conv", "gemm", "xmma", "cudnn", "cutlass", "sm90",
 
 
 def profile_move(actor, net, what: str, card: str) -> dict:
-    """One more move of `actor` under torch.profiler: wall time, the
-    device's busy time and share, device time by kernel group (the two
-    liberty kernels, the net's convolutions and matrix products,
-    everything else), and the launch counts of that move alone."""
+    """One more move of `actor` under torch.profiler (`profile_call`)."""
+    return profile_call(lambda: actor.play_moves(net, None, 1), what, card)
+
+
+def profile_call(fn, what: str, card: str) -> dict:
+    """`fn()` under torch.profiler: wall time, the device's busy time and
+    share, device time by kernel group (the two liberty kernels, the net's
+    convolutions and matrix products, everything else), and the launch
+    counts of that call alone."""
     from torch.profiler import ProfilerActivity, profile
 
     from elf_tpu_torch.env.go import kernels
@@ -615,7 +635,7 @@ def profile_move(actor, net, what: str, card: str) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        actor.play_moves(net, None, 1)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     launches = kernels.launch_counts()
@@ -3381,6 +3401,203 @@ def tools_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: bench_torch.py's stages in this process
+# ---------------------------------------------------------------------------
+
+# the env chunk's boards replayed on the host, and the production stage's
+# rollouts (cut from 1600: the full run is `python3 bench_torch.py`)
+BENCH_REPLAY_B, BENCH_PROD_ROLLOUTS = 256, 64
+
+
+def bench_env(bt, card: str, kernel_ms: float, counted) -> dict:
+    """The env stage at full size (B = 4096, 64-step chunks, 4 timed after
+    3 warm-up): exact launches; one more chunk with its actions, the first
+    `BENCH_REPLAY_B` boards replayed on the host through the plain
+    versions with the chunk's reset must end in the card's state bit for
+    bit; one more chunk under torch.profiler."""
+    from elf_tpu_torch.env.go import engine
+
+    B, size, chunk, iters = 4096, 19, 64, 4      # bench_torch's defaults
+    env = {}
+    sps = counted("env", lambda: bt.bench_env_steps(B, size, chunk, iters,
+                                                    out=env),
+                  {"step_analysis": chunk * (3 + iters), "analyze_libs": 0})
+    step_ms = B / sps * 1e3
+
+    actions = []
+    start = env["core"]
+    core, legal, illegal = bt.rollout_chunk(env["fresh"], start, env["legal"],
+                                            env["gen"], size, chunk, actions)
+    if bool(illegal.any()):
+        fail("bench: env: the replayed chunk drew an illegal action")
+
+    def host(c):
+        return engine.GoCore(*(t[:BENCH_REPLAY_B].cpu() for t in c))
+
+    fresh_h, core_h, resets = host(env["fresh"]), host(start), 0
+    for a in actions:
+        core_h, info = engine.step_core(core_h, a[:BENCH_REPLAY_B].cpu(),
+                                        size)
+        if bool(info.illegal.any()):
+            fail("bench: env: an action is illegal on host replay")
+        done = engine.is_terminal_core(core_h, size)
+        resets += int(done.sum())
+        core_h = bt.reset_finished(fresh_h, core_h, done)
+        legal_h = info.legal_next | done[:, None]
+    for name, h, c in zip(engine.GoCore._fields, core_h, host(core)):
+        if not torch.equal(h, c):
+            fail(f"bench: env: {name} after host replay differs from the "
+                 "card's")
+    if not torch.equal(legal_h, legal[:BENCH_REPLAY_B].cpu()):
+        fail("bench: env: the legal mask after host replay differs")
+
+    prof = profile_call(
+        lambda: bt.rollout_chunk(env["fresh"], core, legal, env["gen"], size,
+                                 chunk),
+        f"one env chunk ({chunk} steps) at 19x19 B {B}", card)
+    if prof["launches"] != {"step_analysis": chunk, "analyze_libs": 0}:
+        fail(f"bench: env: the profiled chunk launched {prof['launches']}")
+    out = dict(
+        boards=B, chunk=chunk, iters=iters, env_steps_per_s=sps,
+        step_ms=step_ms, replay_boards=BENCH_REPLAY_B, replay_resets=resets,
+        kernel_ms_graph=kernel_ms,
+        kernels_per_step=prof["device_kernels"] / chunk,
+        host_copies_and_syncs_per_chunk=prof["host_copies_and_syncs"],
+        busy_share=prof["device_busy_share"],
+        liberty_kernel_ms_per_step=prof["groups_ms"]["liberty kernels"]
+        / chunk,
+        profile=prof)
+    log(f"bench: env 19x19 B {B}: {sps:,.0f} env steps/s, "
+        f"{step_ms:.4f} ms a lockstep step; step_analysis "
+        f"{kernel_ms:.6f} ms a launch by graph replay "
+        f"({100 * kernel_ms / step_ms:.2f}% of a step); profiled chunk: "
+        f"{out['kernels_per_step']:.1f} device ops a step, "
+        f"{out['host_copies_and_syncs_per_chunk']} host copies/syncs a "
+        f"chunk, card {100 * out['busy_share']:.1f}% busy; the first "
+        f"{BENCH_REPLAY_B} boards of one more chunk equal on host replay "
+        f"({resets} resets), on {card}")
+    return out
+
+
+def bench_phase(card: str, kernel_ms_4096: float) -> dict:
+    """`bench_torch.py`'s stages called in this process at the sizes its
+    `main` runs, but production self-play at `BENCH_PROD_ROLLOUTS`
+    rollouts: env (`bench_env`), NN forwards at 128 and 1024 (and one at
+    1024 under torch.profiler), the B = 16 search, the remat train step at
+    2048 (no halving, finite stats) and production self-play at B = 1024
+    (legal on host replay).  The launch counts are set to 0 before each
+    stage and read after it; where the code fixes them they must be
+    exact."""
+    import bench_torch as bt
+
+    from elf_tpu_torch.env.go import kernels
+    from elf_tpu_torch.models.resnet import ModelConfig, build_model
+
+    phase_t0 = time.perf_counter()
+    launches = {"step_analysis": 0, "analyze_libs": 0}
+    per_stage = {}
+
+    def counted(stage, fn, want):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        n = kernels.launch_counts()
+        if n != want:
+            fail(f"bench: {stage}: launches {n}, expected {want}")
+        per_stage[stage] = n
+        for k in launches:
+            launches[k] += n[k]
+        bt._release()
+        return got
+
+    none = {"step_analysis": 0, "analyze_libs": 0}
+    out = {"card": card, "env": bench_env(bt, card, kernel_ms_4096, counted)}
+
+    nn = {}
+    for batch in (128, 1024):
+        evals = counted(f"nn {batch}", lambda: bt.bench_nn_forward(
+            batch=batch), none)
+        ms = batch / evals * 1e3
+        bound_ms = bt._fwd_flops(batch) / BF16_FLOPS_PER_S * 1e3
+        nn[batch] = dict(evals_per_s=evals, forward_ms=ms, bound_ms=bound_ms,
+                         bound_share=bound_ms / ms)
+        log(f"bench: NN 20b256c bf16 batch {batch}: {evals:,.0f} evals/s, "
+            f"{ms:.3f} ms a forward, {100 * bound_ms / ms:.1f}% of its "
+            f"{bound_ms:.3f} ms bf16 bound, on {card}")
+    # where a forward at 1024 spends its device time: the stage's net
+    net = build_model(ModelConfig(), "cuda", seed=0).eval()
+    x = torch.zeros((1024, 19, 19, 18), device="cuda")
+
+    def forward():
+        with torch.inference_mode():
+            net(x)
+
+    forward()
+    nn["profile_1024"] = profile_call(forward, "one NN forward at batch 1024",
+                                      card)
+    del net, x
+    out["nn"] = nn
+
+    searches, rollouts = 4, 64
+    rps = counted("mcts", bt.bench_mcts_rollouts,
+                  {"step_analysis": searches * rollouts,
+                   "analyze_libs": searches})
+    out["mcts"] = dict(B=16, rollouts=rollouts, rollouts_per_s=rps)
+    log(f"bench: MCTS 20b256c B 16, {rollouts} rollouts: {rps:,.0f} "
+        f"rollouts/s, on {card}")
+
+    torch.cuda.reset_peak_memory_stats()
+    st = {}
+    bs, sps, tflops = counted("train", lambda: bt.bench_train_step(out=st),
+                              none)
+    peak = torch.cuda.max_memory_allocated()
+    if bs != 2048:
+        fail(f"bench: train: ran at batch {bs}, not 2048")
+    if not all(np.isfinite(v) for v in st["stats"].values()):
+        fail(f"bench: train: a stat is not finite: {st['stats']}")
+    out["train"] = dict(batch=bs, steps_per_s=sps, tflops=tflops,
+                        positions_per_s=sps * bs, peak_memory_bytes=peak,
+                        stats=st["stats"])
+    log(f"bench: train 20b256c remat batch {bs}: {sps:.3f} steps/s "
+        f"({1e3 / sps:.1f} ms a step), {sps * bs:,.0f} positions/s, "
+        f"{tflops:.1f} TFLOP/s by bench.py's 4x count, loss "
+        f"{st['stats']['loss/total']:.4f}, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB, on {card}")
+
+    torch.cuda.reset_peak_memory_stats()
+    p = {}
+    boards = 1024
+    mps, rps, gph = counted(
+        "production",
+        lambda: bt.bench_selfplay_prod(rollouts=BENCH_PROD_ROLLOUTS, out=p),
+        {"step_analysis": 2 * (BENCH_PROD_ROLLOUTS + 1), "analyze_libs": 2})
+    peak = torch.cuda.max_memory_allocated()
+    actor = p.pop("actor")
+    if actor.cfg.batch != boards:
+        fail(f"bench: production ran at B {actor.cfg.batch}")
+    stones = replay_is_legal(actor.moves, 19)
+    if not torch.equal(stones, actor.state.core.stones):
+        fail("bench: production: replayed boards differ from the actor's")
+    del actor
+    bt._release()
+    out["production"] = dict(boards=boards, rollouts=BENCH_PROD_ROLLOUTS,
+                             moves_per_s=mps, rollouts_per_s=rps,
+                             games_per_hour=gph, peak_memory_bytes=peak)
+    log(f"bench: production 19x19 20b256c B {boards}, "
+        f"{BENCH_PROD_ROLLOUTS} rollouts: {mps:.2f} moves/s, {rps:,.0f} "
+        f"rollouts/s, ~{gph:,.0f} games/hour, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; every move legal on host replay, on "
+        f"{card}")
+
+    out.update(launches=launches, launches_by_stage=per_stage,
+               phase_s=time.perf_counter() - phase_t0)
+    log(f"bench: launches {per_stage}; the phase's wall time "
+        f"{out['phase_s']:.1f} s (host clock), on {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3424,6 +3641,8 @@ def main() -> int:
     result["offline"] = offline_phase(card)
     result["parallel"] = parallel_phase(card)
     result["tools"] = tools_phase(card)
+    result["bench"] = bench_phase(card, result["kernels"]["timings"][
+        ("step_analysis", "mid-game", 4096)]["union-find"]["ms"])
     result["profile"] = profile_phase(card, net)
 
     rows = []
@@ -3447,6 +3666,7 @@ def main() -> int:
             "launches_offline": result["offline"]["launches"][name],
             "launches_parallel": result["parallel"]["launches"][name],
             "launches_tools": result["tools"]["launches"][name],
+            "launches_bench": result["bench"]["launches"][name],
             "max_abs_err": k["worst"][name], "ms": t["union-find"]["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None,

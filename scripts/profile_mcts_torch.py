@@ -43,6 +43,36 @@ from elf_tpu_torch.profiling import Profiler
 from elf_tpu_torch.search.mcts import MCTSConfig, run_mcts
 
 
+def search_inputs(B: int, rollouts: int, m: int, blocks: int, dim: int,
+                  rotation_flip: bool, device):
+    """What a timed search runs on: empty 19x19 boards with no history, the
+    net of random weights drawn from seed 0 as an evaluator, and the search
+    config.  Returns (core, hist, hlen, eval_fn, mcfg)."""
+    size = 19
+    cfg = ModelConfig(board_size=size, num_planes=18, num_block=blocks,
+                      dim=dim)
+    eval_fn = eval_fn_builder(build_model(cfg, device, seed=0))
+    mcfg = MCTSConfig(num_rollouts=rollouts, rollouts_per_batch=m,
+                      rotation_flip=rotation_flip)
+    core = init_core(B, size, device)
+    hist = torch.zeros((B, MAX_AGZ_HISTORY, size * size), dtype=torch.int8,
+                       device=device)
+    hlen = torch.zeros((B,), dtype=torch.int32, device=device)
+    return core, hist, hlen, eval_fn, mcfg
+
+
+def search(inputs, eval_fn, seed: int):
+    """One `run_mcts` over `inputs` (`search_inputs`) with `eval_fn` and a
+    generator seeded `seed` on their device; returns the root policy."""
+    core, hist, hlen, _, mcfg = inputs
+    device = core.stones.device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.inference_mode():
+        res, _ = run_mcts(core, hist, hlen, eval_fn, gen, mcfg, 19,
+                          device=device)
+    return res.mcts_policy
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--B", type=int, default=16)
@@ -60,16 +90,9 @@ def main(argv=None):
 
     B, rollouts, m = args.B, args.rollouts, args.m
     size, A = 19, 362
-    cfg = ModelConfig(board_size=size, num_planes=18, num_block=args.blocks,
-                      dim=args.dim)
-    eval_fn = eval_fn_builder(build_model(cfg, device, seed=0))
-    mcfg = MCTSConfig(num_rollouts=rollouts, rollouts_per_batch=m,
-                      rotation_flip=bool(args.rotation_flip))
-
-    core = init_core(B, size, device)
-    hist = torch.zeros((B, MAX_AGZ_HISTORY, size * size), dtype=torch.int8,
-                       device=device)
-    hlen = torch.zeros((B,), dtype=torch.int32, device=device)
+    inputs = search_inputs(B, rollouts, m, args.blocks, args.dim,
+                           bool(args.rotation_flip), device)
+    eval_fn = inputs[3]
 
     def sync():
         if device.type == "cuda":
@@ -92,15 +115,8 @@ def main(argv=None):
         launches[label] = kernels.launch_counts()
         return dt
 
-    def search(eval_fn_, i):
-        gen = torch.Generator(device=device).manual_seed(100 + i)
-        with torch.inference_mode():
-            res, _ = run_mcts(core, hist, hlen, eval_fn_, gen, mcfg, size,
-                              device=device)
-        return res.mcts_policy
-
     # ---- full search ----------------------------------------------------
-    t_full = timed(lambda i: search(eval_fn, i), "full")
+    t_full = timed(lambda i: search(inputs, eval_fn, 100 + i), "full")
 
     # ---- net only: the same calls (root batch B, n_batches of B*m) ------
     n_batches = rollouts // m
@@ -125,12 +141,12 @@ def main(argv=None):
         return (torch.full((K, A), -math.log(A), device=feats.device),
                 torch.zeros((K,), device=feats.device))
 
-    t_tree = timed(lambda i: search(const_eval, i), "tree_only")
+    t_tree = timed(lambda i: search(inputs, const_eval, 100 + i), "tree_only")
 
     if args.trace_dir:
         kernels.reset_launch_counts()
         with Profiler(args.trace_dir).trace():
-            search(eval_fn, 3)
+            search(inputs, eval_fn, 103)
             sync()
         launches["full"] = {k: v + launches["full"][k]
                             for k, v in kernels.launch_counts().items()}

@@ -560,3 +560,21 @@ def test_batch_replay_on_card_equals_cpu(dev):
 
     for a, b in zip(leaves(st_card), leaves(st_cpu)):
         assert torch.equal(a.cpu(), b)
+
+
+def test_bench_env_steps_on_card(dev):
+    """`bench_torch.bench_env_steps` at B = 4096 with 8-step chunks (3
+    warm-up and 1 timed): a positive rate, one `step_analysis` launch a
+    step and no `analyze_libs` (the legal mask rides on the step)."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import bench_torch
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    sps = bench_torch.bench_env_steps(B=4096, chunk=8, iters=1)
+    assert sps > 0
+    assert kernels.launch_counts() == {"step_analysis": 8 * 4,
+                                       "analyze_libs": 0}
