@@ -24,6 +24,9 @@ Protocol:
 Resumable: re-running with the same --out continues from the latest
 checkpoint; the random-init snapshot (`init.bin`) is written once on the
 first run so the baseline stays fixed across resumes.
+An --out that holds only an init (`init.bin` or `init_params.bin`, such
+as the JAX run's committed `runs/prove19/init_params.bin`) starts a run
+that trains from it and is scored against it.
 
 This is the PyTorch/CUDA counterpart of `scripts/prove_learning.py`: the
 same options, protocol, output files and return code, on `elf_tpu_torch`,
@@ -144,6 +147,32 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def pass_enabled_ply(args, size: int) -> int:
+    """The ply from which pass is legal: --ply_pass_enabled, or n2*160/361."""
+    if args.ply_pass_enabled >= 0:
+        return args.ply_pass_enabled
+    return max(6, size * size * 160 // 361)
+
+
+def make_eval_actor(args, size: int, device, eval_raw) -> SelfplayActor:
+    """The proof's eval actor: a pair-eval search of `--eval_rollouts`
+    without root noise, argmax moves, pass masked until
+    `pass_enabled_ply`, `--eval_games` / 2 boards (one half of a
+    `head_to_head`).  A fixed-weight match that is to be set beside the
+    proof's curve plays on this actor."""
+    return SelfplayActor(
+        ActorConfig(board_size=size, batch=max(args.eval_games // 2, 1),
+                    komi=args.komi, policy_distri_cutoff=0,
+                    resign_thres=0.0, never_resign_prob=1.0),
+        MCTSConfig(num_rollouts=args.eval_rollouts,
+                   rollouts_per_batch=args.rollouts_per_batch,
+                   c_puct=args.c_puct, root_epsilon=0.0, komi=args.komi,
+                   ply_pass_enabled=pass_enabled_ply(args, size)),
+        make_pair_eval_builder(eval_raw), seed=args.seed + 2,
+        device=device,
+    )
+
+
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
@@ -155,11 +184,7 @@ def main(argv=None):
         if args.policy_distri_cutoff >= 0
         else max(4, n2 * 30 // 361)
     )
-    pass_ply = (
-        args.ply_pass_enabled
-        if args.ply_pass_enabled >= 0
-        else max(6, n2 * 160 // 361)
-    )
+    pass_ply = pass_enabled_ply(args, size)
 
     cfg = ModelConfig(board_size=size, num_planes=18, num_block=args.blocks,
                       dim=args.dim, use_bf16=bool(args.use_bf16))
@@ -207,6 +232,15 @@ def main(argv=None):
             runner.state = load_checkpoint(latest, template=template)
         elif os.path.exists(latest_export):
             runner.state = load_checkpoint(latest_export, template=template)
+        else:
+            # the init alone (a run started from a committed init export):
+            # the trainee starts from the baseline it is scored against,
+            # as the JAX script's seeded init does, with fresh optimizer
+            # slots at step 0
+            runner.state = copy.deepcopy(state0)
+            runner.state.opt_state = trainer.tx.init(runner.state.net)
+            runner.state.step = 0
+            print("# trainee = init export", flush=True)
         if os.path.exists(state_path):
             with open(state_path) as f:
                 progress.update(json.load(f))
@@ -253,17 +287,7 @@ def main(argv=None):
     actor = SelfplayActor(acfg, mcfg, eval_fn_builder, seed=args.seed + 1,
                           device=device)
 
-    eval_actor = SelfplayActor(
-        ActorConfig(board_size=size, batch=max(args.eval_games // 2, 1),
-                    komi=args.komi, policy_distri_cutoff=0,
-                    resign_thres=0.0, never_resign_prob=1.0),
-        MCTSConfig(num_rollouts=args.eval_rollouts,
-                   rollouts_per_batch=args.rollouts_per_batch,
-                   c_puct=args.c_puct, root_epsilon=0.0, komi=args.komi,
-                   ply_pass_enabled=pass_ply),
-        make_pair_eval_builder(eval_raw), seed=args.seed + 2,
-        device=device,
-    )
+    eval_actor = make_eval_actor(args, size, device, eval_raw)
 
     def snapshot_state():
         # the train step updates the state in place: a frozen copy

@@ -578,3 +578,96 @@ def test_bench_env_steps_on_card(dev):
     assert sps > 0
     assert kernels.launch_counts() == {"step_analysis": 8 * 4,
                                        "analyze_libs": 0}
+
+
+def test_actor_device_draws_follow_their_distributions(dev):
+    """The draws the actor makes from its CUDA generator: D4 codes uniform
+    over 8 (chi-square at 7 degrees of freedom, p > 1e-3 at 16,384 draws);
+    Dirichlet noise at alpha 0.03 and 0.2 zero on illegal actions, each
+    row summing to 1, each legal action's mean 1 / n_legal within 6
+    standard errors; `gumbel_categorical` frequencies within 0.01 of the
+    softmax at 10^5 draws."""
+    from elf_tpu_torch.search import mcts
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n = 16384
+    codes = mcts._draw_codes(n, gen, MCTSConfig(), dev)
+    assert codes.device.type == "cuda"
+    counts = torch.bincount(codes, minlength=8).cpu().numpy()
+    assert counts.shape == (8,) and counts.sum() == n
+    chi2 = float(((counts - n / 8) ** 2 / (n / 8)).sum())
+    assert chi2 < 24.322        # the 0.999 quantile at 7 degrees of freedom
+
+    rows, A = 20000, 362
+    for alpha in (0.03, 0.2):
+        for n_legal in (7, 181):
+            idx = torch.randperm(A, generator=gen, device=dev)[:n_legal]
+            legal = torch.zeros(rows, A, dtype=torch.bool, device=dev)
+            legal[:, idx] = True
+            noise = mcts.dirichlet_noise(legal, alpha, gen)
+            assert not noise[~legal].any()
+            torch.testing.assert_close(noise.sum(1).cpu(),
+                                       torch.ones(rows), atol=1e-5, rtol=0)
+            mean = noise[:, idx].double().mean(0).cpu().numpy()
+            var = (1 / n_legal) * (1 - 1 / n_legal) / (n_legal * alpha + 1)
+            se = np.sqrt(var / rows)
+            assert np.abs(mean - 1 / n_legal).max() < 6 * se, (alpha, n_legal)
+
+    draws = 100_000
+    logits = torch.log(torch.tensor(
+        [0.4, 0.25, 0.15, 0.1, 0.06, 0.04], device=dev))
+    logits = torch.cat([logits, torch.full((A - 6,), -1e9, device=dev)])
+    picked = mcts.gumbel_categorical(logits.expand(draws, A).contiguous(),
+                                     gen)
+    freq = torch.bincount(picked, minlength=A).double().cpu() / draws
+    want = torch.softmax(logits.double().cpu(), 0)
+    assert float((freq - want).abs().max()) < 0.01
+    assert not freq[6:].any()
+
+
+@pytest.mark.timeout(900)
+def test_pair_eval_search_on_card_matches_cpu(dev, monkeypatch):
+    """The learning proof's eval actor (`make_eval_actor`: 64 rollouts,
+    pass masked until ply 160) with the committed export against the
+    committed init at 20b256c, fp32 with TF32 off, the symmetries fixed
+    (no D4 draws) and argmax moves from ply 0: the card plays the CPU's
+    first 8 moves."""
+    import dataclasses
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from elf_tpu_torch.config import TrainOptions
+    from elf_tpu_torch.models.resnet import ModelConfig
+    from elf_tpu_torch.training.trainer import Trainer, load_checkpoint
+    from scripts.prove_learning_torch import make_eval_actor, parse_args
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    runs = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "runs", "prove19")
+    args = parse_args(["--out", "unused", "--board_size", "19",
+                       "--blocks", "20", "--dim", "256", "--eval_games", "2",
+                       "--eval_rollouts", "64", "--use_bf16", "0"])
+    moves = {}
+    for d in ("cpu", dev):
+        trainer = Trainer(ModelConfig(board_size=19, num_planes=18,
+                                      num_block=20, dim=256, use_bf16=False),
+                          TrainOptions(num_block=20, dim=256), device=d)
+        template = trainer.init_state(torch.Generator().manual_seed(0))
+        a = load_checkpoint(os.path.join(runs, "export-best.bin"),
+                            template=template)
+        b = load_checkpoint(os.path.join(runs, "init_params.bin"),
+                            template=template)
+        actor = make_eval_actor(args, 19, d, trainer.make_eval_fn())
+        assert actor.mcts_cfg.ply_pass_enabled == 160
+        actor.mcts_cfg = dataclasses.replace(actor.mcts_cfg,
+                                             rotation_flip=False)
+        actor.cfg = dataclasses.replace(actor.cfg, policy_distri_cutoff=-1)
+        seq = []
+        for _ in range(8):
+            actor.play_moves((a.net, b.net), (None, None), 1)
+            seq.append(int(actor.state.core.last_move[0]))
+        moves[str(d)] = seq
+    assert moves["cuda"] == moves["cpu"]
+    assert all(0 <= m < 361 for m in moves["cpu"])
