@@ -172,15 +172,25 @@ Phases:
      memory); production self-play at B = 1024 and 64 rollouts (exact
      launches, every move legal on host replay);
  16. profile: one more slice move under torch.profiler, device time by
-     kernel group, with its own launch counts.
+     kernel group, with its own launch counts;
+ 17. prod13: the JAX run's two 13x13 10b128c checkpoints
+     (runs/prod13/init.bin and promoted-160.bin).  A short anchor through
+     `tools/prod_anchor_parity.py` (the proof's own `final_anchor_match`
+     at the README's 13x13 flags): ver 160 against the init, 8 games (4 a
+     colour) at 16 rollouts, capped at 2 * 169 - 1 plies as the protocol
+     caps, with exact launch counts (16 + 1 `step_analysis` and 1
+     `analyze_libs` a lockstep move); every game replayed on the host;
+     both kernels on every position played against their plain versions,
+     exact; both nets' fp32 forward on the card against the CPU's on
+     positions played, within 1e-4.
 
 The kernel phase times B = 1 too, the batch of the play surface.  Prints
 the card's nvidia-smi line, one JSON line describing the kernels
 (`launches` is the slice's count, `launches_train`, `launches_fleet`,
 `launches_play`, `launches_production`, `launches_df`,
-`launches_offline`, `launches_parallel`, `launches_tools` and
-`launches_bench` those of the train, fleet, play, production, df, offline,
-parallel, tools and bench phases),
+`launches_offline`, `launches_parallel`, `launches_tools`,
+`launches_bench` and `launches_prod13` those of the train, fleet, play,
+production, df, offline, parallel, tools, bench and prod13 phases),
 and last
 `{"ok": true, "device": {...}}`.  Exits non-zero, before printing any result, when CUDA is
 unavailable or the port is not beside this file.
@@ -3598,6 +3608,135 @@ def bench_phase(card: str, kernel_ms_4096: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the 13x13 production protocol's two checkpoints
+# ---------------------------------------------------------------------------
+
+# The README's 13x13 command (scripts/prod13_card_torch.sh), and the
+# phase's short anchor: games (half a colour), rollouts, the rows of the
+# card-against-CPU forward and its tolerance: that of the 19x19 export's
+# fp32 forward against flax (tests/test_torch_resnet.py), as cuDNN and the
+# CPU sum the 21 convolutions in different orders (2.3e-5 on |log_pi| up
+# to 8 was seen on an H100)
+PROD13_FLAGS = ["--board_size", "13", "--num_block", "10", "--dim", "128",
+                "--num_games", "192", "--client1_num_games", "96",
+                "--eval_num_games", "400", "--value_weight", "0.25",
+                "--train_bs", "256", "--num_minibatch", "40",
+                "--selfplay_init_num", "150", "--selfplay_update_num", "75"]
+PROD13_GAMES, PROD13_ROLLOUTS, PROD13_ROWS, PROD13_TOL = 8, 16, 256, 1e-4
+
+
+def replay_positions(moves_per_board, size: int):
+    """Replay each board's moves on the host (plain versions) as
+    `replay_is_legal` does, and keep every position before a move: the
+    GoState rows, the stones [P, N2] and the colour to play [P] at each,
+    and the move played from it [P]."""
+    from elf_tpu_torch.env.go import state as gostate
+
+    B, n2 = len(moves_per_board), size * size
+    st = gostate.init_state(B, size, "cpu")
+    rows, stones, colors, actions = [], [], [], []
+    for i in range(max((len(m) for m in moves_per_board), default=0)):
+        live = torch.tensor([i < len(m) for m in moves_per_board])
+        a = torch.tensor([m[i] if i < len(m) else n2 for m in moves_per_board],
+                         dtype=torch.int32)
+        rows.append((st, live))
+        stones.append(st.core.stones[live])
+        colors.append(st.core.to_play[live].to(torch.int32))
+        actions.append(a[live])
+        st, info = gostate.step(st, a, size)
+        if bool((info.illegal & live).any()):
+            fail(f"illegal move replayed at ply {i}")
+    return rows, torch.cat(stones), torch.cat(colors), torch.cat(actions)
+
+
+def prod13_phase(card: str) -> dict:
+    """The JAX run's two 13x13 10b128c checkpoints (its frozen init and its
+    promoted ver 160) on the card: a short anchor through the proof's own
+    `final_anchor_match` (tools/prod_anchor_parity.py), every game replayed
+    on the host, both kernels held against their plain versions on the
+    boards played, and both nets' fp32 forward against the CPU's."""
+    from argparse import Namespace
+
+    from elf_tpu_torch.env.go import features, kernels
+    from elf_tpu_torch.env.go.coords import sgf_string_to_moves
+    from elf_tpu_torch.models.resnet import ModelConfig, load_model
+
+    prod_anchor_parity = load_script_module("tools/prod_anchor_parity.py")
+    phase_t0 = time.perf_counter()
+    size, n2 = 13, 169
+    run = ROOT / "runs" / "prod13"
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    line, sink = prod_anchor_parity.anchor(
+        Namespace(package="torch", out=str(run), ver=160,
+                  games=PROD13_GAMES, cutoff=0, device="cuda"),
+        [*PROD13_FLAGS, "--final_rollouts", str(PROD13_ROLLOUTS)])
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    m = line["lockstep_moves"]
+    want = {"step_analysis": m * (PROD13_ROLLOUTS + 1), "analyze_libs": m}
+    if line["n"] != PROD13_GAMES or launches != want:
+        fail(f"prod13: the anchor played {line['n']} games with launches "
+             f"{launches}, expected {PROD13_GAMES} and {want}")
+    played = [sgf_string_to_moves(r.result.content, size) for r, _ in sink]
+    if [len(p) for p in played] != [int(r.result.num_move) for r, _ in sink] \
+            or max(map(len, played)) > 2 * n2 - 1:
+        fail(f"prod13: games of {[len(p) for p in played]} moves")
+    rows, stones, colors, actions = replay_positions(played, size)
+    log(f"prod13: the anchor, ver 160 against the init, {PROD13_GAMES} games "
+        f"at {PROD13_ROLLOUTS} rollouts: {line['wins']}/{line['n']} "
+        f"({line['as_black']} as black, {line['as_white']} as white), "
+        f"moves {line['moves']}, {m} lockstep moves in {line['wall_s']} s, "
+        f"launches {launches}; every move legal on host replay, on {card}")
+
+    # both kernels on every position played, against the plain versions
+    dev = torch.device("cuda")
+    s_cpu = stones.contiguous()
+    worst = {}
+    for name, args in (
+            ("analyze_libs", (s_cpu.reshape(-1, size, size).contiguous(),)),
+            ("step_analysis", (s_cpu, actions, colors))):
+        plain = getattr(kernels, f"{name}_ref")(*(a.to(dev) for a in args))
+        got = getattr(kernels, f"{name}_cuda")(*(a.to(dev) for a in args))
+        torch.cuda.synchronize()
+        for g_, r_ in zip(got, plain):
+            if g_.dtype != r_.dtype or not torch.equal(g_, r_):
+                fail(f"prod13: {name} differs from the plain version on the "
+                     "13x13 boards played")
+        worst[name] = max(int((g_.int() - r_.int()).abs().max())
+                          for g_, r_ in zip(got, plain))
+    log(f"prod13: both kernels equal to their plain versions on the "
+        f"{len(s_cpu)} 13x13 positions played (B = {len(s_cpu)})")
+
+    # both nets' fp32 forward, card against CPU, on positions played
+    x = torch.cat([features.extract_agz(
+        st, torch.zeros(len(played), dtype=torch.int32), size)[live]
+        for st, live in rows])
+    x = x[np.sort(np.random.default_rng(13).choice(
+        len(x), size=min(len(x), PROD13_ROWS), replace=False))]
+    cfg = ModelConfig(board_size=size, num_block=10, dim=128, use_bf16=False)
+    errs = {}
+    for name in ("init", "promoted-160"):
+        path = str(run / f"{name}.bin")
+        with torch.no_grad():
+            ref = load_model(path, cfg, "cpu")(x)
+            got = load_model(path, cfg, "cuda")(x.to(dev))
+        errs[name] = max(float((g_.cpu() - r_).abs().max())
+                         for g_, r_ in zip(got, ref))
+        if not errs[name] <= PROD13_TOL:
+            fail(f"prod13: {name} fp32 forward on the card differs from the "
+                 f"CPU's by {errs[name]} (tolerance {PROD13_TOL})")
+    log(f"prod13: fp32 forward of init / promoted-160 at 13x13 10b128c on "
+        f"{len(x)} positions played, card against CPU: max abs error "
+        f"{errs['init']:.3g} / {errs['promoted-160']:.3g} (tolerance "
+        f"{PROD13_TOL}); the phase's wall time "
+        f"{time.perf_counter() - phase_t0:.1f} s, on {card}")
+    return dict(anchor=line, launches=launches, positions=len(s_cpu),
+                kernel_worst=worst, forward_err=errs, rows=len(x),
+                phase_s=time.perf_counter() - phase_t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3644,6 +3783,7 @@ def main() -> int:
     result["bench"] = bench_phase(card, result["kernels"]["timings"][
         ("step_analysis", "mid-game", 4096)]["union-find"]["ms"])
     result["profile"] = profile_phase(card, net)
+    result["prod13"] = prod13_phase(card)
 
     rows = []
     replaces = {
@@ -3667,6 +3807,7 @@ def main() -> int:
             "launches_parallel": result["parallel"]["launches"][name],
             "launches_tools": result["tools"]["launches"][name],
             "launches_bench": result["bench"]["launches"][name],
+            "launches_prod13": result["prod13"]["launches"][name],
             "max_abs_err": k["worst"][name], "ms": t["union-find"]["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None,

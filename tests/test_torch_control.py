@@ -700,13 +700,20 @@ def test_selfplay_subctrl_matches_jax():
         assert t.info() == j.info()
 
 
-def test_eval_subctrl_matches_jax():
+@pytest.mark.parametrize("num_games, num_threads, steps", [
+    (12, 4, 1500),
+    (400, -1, 9000),
+], ids=["12_games", "400_games_prod13"])
+def test_eval_subctrl_matches_jax(num_games, num_threads, steps):
     """The same seeded stream of requests, results and client deaths through
     both packages' EvalSubCtrl: the same request JSON, the same promote /
     reject decisions (early stops included), the same re-keying of pending
-    candidates after a promotion."""
-    kw = dict(eval_num_games=12, eval_winrate_thres=0.55,
-              eval_num_threads=4, eval_num_rollouts=32)
+    candidates after a promotion.  At 12 games (4 boards a client) and at
+    the 13x13 protocol's 400 (every board of a client, the README's
+    --eval_num_threads -1), where the win-rate bound stops evals early in
+    both directions."""
+    kw = dict(eval_num_games=num_games, eval_winrate_thres=0.55,
+              eval_num_threads=num_threads, eval_num_rollouts=32)
     ts_t = trec.TSOptions(num_threads=1, num_rollouts_per_thread=64,
                           root_epsilon=0.25, root_alpha=0.03)
     ts_j = jrec.TSOptions(num_threads=1, num_rollouts_per_thread=64,
@@ -720,7 +727,7 @@ def test_eval_subctrl_matches_jax():
     dead = set()
     next_cand = 1
     decisions = []
-    for step in range(1500):
+    for step in range(steps):
         if rng.rand() < 0.02 or not t.pending:
             for c in (t, j):
                 c.add_new_model_for_evaluation(next_cand)
@@ -766,8 +773,11 @@ def test_eval_subctrl_matches_jax():
         assert t.info() == j.info()
     kinds = {k for k, _ in decisions}
     assert kinds == {"PROMOTE", "reject"}, decisions
-    assert any(n < kw["eval_num_games"] for _, n in decisions), \
+    assert any(n < num_games for _, n in decisions), \
         "no decision stopped early"
+    if num_games == 400:
+        early = {k for k, n in decisions if n < num_games}
+        assert early == {"PROMOTE", "reject"}, decisions
 
 
 @pytest.mark.parametrize("name", ["GameOptions", "MCTSOptions",

@@ -1,7 +1,7 @@
 """The port's production control plane on the CPU: the twin of
 tests/test_production_loop.py with scripts/prove_production_torch.py, the
-command lines both proof scripts give their processes, and the committed
-9x9 init the card run starts from.
+command lines both proof scripts give their processes, the committed 9x9
+and 13x13 inits the card runs start from, and the anchor tool's flags.
 
 The twin runs 1 train_server_torch + 2 selfplay_client_torch processes
 over TCP with no cheat flags, at the JAX test's arguments, from the JAX
@@ -13,9 +13,10 @@ resume path loads it.  Every process runs one host thread: three torch
 processes at the default thread count oversubscribe the cores and run
 the protocol many times slower.
 
-The init test is exact: runs/prod9/init.bin is, leaf for leaf and dtype
-for dtype, the state the JAX `LearnerRunner` draws at seed 11 for the 9x9
-4b64c protocol (what the JAX server writes as save-0.bin)."""
+The init tests are exact: runs/prod9/init.bin and runs/prod13/init.bin
+are, leaf for leaf and dtype for dtype, the states the JAX `LearnerRunner`
+draws at seed 11 for the 9x9 4b64c protocol and the README's 13x13 10b128c
+command (what the JAX server writes as save-0.bin)."""
 
 import json
 import os
@@ -38,7 +39,7 @@ from scripts import prove_production
 from scripts import prove_production_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PROD9_INIT = os.path.join(REPO, "runs", "prod9", "init.bin")
+PROD13_PROMOTED = os.path.join(REPO, "runs", "prod13", "promoted-160.bin")
 
 # tests/test_production_loop.py's arguments, --device for --platform
 CI5 = ["--board_size", "5", "--num_block", "1", "--dim", "16",
@@ -49,6 +50,12 @@ CI5 = ["--board_size", "5", "--num_block", "1", "--dim", "16",
        "--num_minibatch", "24", "--train_bs", "64",
        "--target_promotions", "1", "--final_games", "0",
        "--max_seconds", "1200"]
+# the README's 13x13 command (README.md, "13x13, half-depth production net")
+PROD13 = ["--board_size", "13", "--num_block", "10", "--dim", "128",
+          "--num_games", "192", "--client1_num_games", "96",
+          "--eval_num_games", "400", "--value_weight", "0.25",
+          "--train_bs", "256", "--num_minibatch", "40",
+          "--selfplay_init_num", "150", "--selfplay_update_num", "75"]
 
 
 def jax_learner_state(argv, ckpt_dir):
@@ -77,16 +84,23 @@ def _leaves(tree, prefix=""):
 
 # ------------------------------------------------------------ the init
 
-def test_prod9_init_is_the_jax_seed11_learner_state(tmp_path):
-    """runs/prod9/init.bin is the JAX learner's seed-11 state at
-    prove_production.py's defaults (9x9, 4 blocks x 64 channels), exactly:
-    params, BN statistics, optimizer slots and step."""
-    state = jax_learner_state([], str(tmp_path))
+@pytest.mark.parametrize("run, argv, n_params", [
+    ("prod9", [], 341_824),
+    ("prod13", PROD13, 3_079_720),
+], ids=["prod9", "prod13"])
+def test_prod9_init_is_the_jax_seed11_learner_state(run, argv, n_params,
+                                                    tmp_path):
+    """runs/<run>/init.bin is the JAX learner's seed-11 state at the
+    proof's arguments, exactly: params, BN statistics, optimizer slots and
+    step.  prod9: prove_production.py's defaults (9x9, 4 blocks x 64
+    channels); prod13: the README's 13x13 command (10 blocks x 128
+    channels), whose tree is also that of the JAX run's promoted ver 160."""
+    state = jax_learner_state(argv, str(tmp_path))
     want = flax.serialization.to_state_dict(state)
-    with open(PROD9_INIT, "rb") as f:
+    with open(os.path.join(REPO, "runs", run, "init.bin"), "rb") as f:
         got = flax.serialization.msgpack_restore(f.read())
     assert int(got["step"]) == 0 == int(want["step"])
-    n_params = 0
+    count = 0
     for tree in ("params", "batch_stats", "opt_state"):
         ours = dict(_leaves(want[tree]))
         ref = dict(_leaves(got[tree]))
@@ -95,8 +109,19 @@ def test_prod9_init_is_the_jax_seed11_learner_state(tmp_path):
             assert v.dtype == ours[k].dtype and v.shape == ours[k].shape, k
             assert np.array_equal(v, ours[k]), k
             if tree == "params":
-                n_params += v.size
-    assert n_params == 341_824
+                count += v.size
+    assert count == n_params
+    if run == "prod13":
+        with open(PROD13_PROMOTED, "rb") as f:
+            promoted = flax.serialization.msgpack_restore(f.read())
+        assert int(promoted["step"]) == 160
+        assert promoted.keys() == got.keys()
+        for tree in ("params", "batch_stats", "opt_state"):
+            ours = dict(_leaves(got[tree]))
+            theirs = dict(_leaves(promoted[tree]))
+            assert ours.keys() == theirs.keys(), tree
+            for k, v in theirs.items():
+                assert (v.dtype, v.shape) == (ours[k].dtype, ours[k].shape), k
 
 
 # ------------------------------------------------------------ the twin
@@ -230,7 +255,9 @@ def _resumed(out):
     (["--board_size", "19", "--num_clients", "3", "--num_games", "64",
       "--client1_num_games", "12", "--eval_num_threads", "64",
       "--seed", "3"], True),
-], ids=["prod9_defaults", "ci5", "19x19_three_clients_resumed"])
+    (PROD13, False),
+], ids=["prod9_defaults", "ci5", "19x19_three_clients_resumed",
+        "prod13_readme"])
 def test_commands_match_the_jax_script(argv, resumed, tmp_path,
                                        monkeypatch):
     """The server's and each client's argv, flag for flag: the protocol
@@ -282,3 +309,149 @@ def test_commands_match_the_jax_script(argv, resumed, tmp_path,
             args.client1_num_games if args.client1_num_games > 0
             else max(args.num_games // 2, 8))
         assert flag(cmd, "--num_games") == str(boards)
+
+
+# ------------------------------------------------------------ the tools
+
+def _tool(rel):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "tool_" + os.path.basename(rel)[:-3], os.path.join(REPO, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _FakeActor:
+    """Plays nothing: each call of `play_moves` finishes one game per
+    board, the first board's won by black, the second's by white."""
+
+    def __init__(self, batch, rec):
+        self.batch, self.rec, self.completed_games = batch, rec, 0
+
+    def reset_all(self):
+        pass
+
+    def play_moves(self, params, bstats, n):
+        out = []
+        for b in range(self.batch):
+            r = self.rec.Record()
+            r.result.reward = 1.0 if b == 0 else -1.0
+            r.result.num_move = 100 + b
+            out.append(r)
+        self.completed_games += self.batch
+        return out
+
+
+@pytest.mark.parametrize("package", ["jax", "torch"])
+def test_anchor_tool_passes_the_proof_flags(package, monkeypatch, capsys):
+    """tools/prod_anchor_parity.py hands the proof's own flags and the
+    port's --device to the proof's parse_args (the JAX package keeps its
+    CPU platform), patches the anchor's opening cutoff in, and counts the
+    games the anchor's head_to_head plays."""
+    if package == "jax":
+        from elf_tpu.selfplay import actor as actor_mod
+        from elf_tpu.selfplay import records as rec
+        from elf_tpu.tools import match
+        proof = prove_production
+    else:
+        from elf_tpu_torch.selfplay import actor as actor_mod
+        from elf_tpu_torch.selfplay import records as rec
+        from elf_tpu_torch.tools import match
+        proof = prove_production_torch
+    seen = {}
+
+    def final_anchor_match(args, ver):
+        seen.update(args=args, ver=ver, cutoff=actor_mod.ActorConfig(
+            board_size=13, batch=2).policy_distri_cutoff)
+        seen["actor"] = _FakeActor(2, rec)
+        return match.head_to_head(seen["actor"], ("a", None), ("b", None), 2)
+
+    monkeypatch.setattr(proof, "final_anchor_match", final_anchor_match)
+    config = actor_mod.ActorConfig
+    tool = _tool("tools/prod_anchor_parity.py")
+    tool.main(["--package", package, "--out", "RUN", "--ver", "160",
+               "--games", "4", "--cutoff", "3", "--device", "cpu",
+               *PROD13, "--final_rollouts", "32"])
+    line = json.loads(capsys.readouterr().out)
+    args = seen["args"]
+    want = prove_production.parse_args(["--out", "RUN", "--final_games", "4",
+                                        *PROD13, "--final_rollouts", "32"])
+    for k, v in vars(want).items():
+        if k != "platform":
+            assert getattr(args, k) == v, k
+    if package == "jax":
+        assert args.platform == "cpu"
+    else:
+        assert args.device == "cpu"
+    assert seen["ver"] == 160 and seen["cutoff"] == 3
+    assert actor_mod.ActorConfig is config          # the patch is undone
+    # one call of 16 moves a half; black wins on the first board
+    assert line == {
+        "package": package, "ver": 160, "cutoff": 3, "board_size": 13,
+        "rollouts": 32, "wins": 2, "n": 4, "as_black": 1, "as_white": 1,
+        "first_k": 200, "first_k_wins": 2, "moves": [100, 100, 101, 101],
+        "lockstep_moves": 32, "wall_s": line["wall_s"]}
+
+
+def test_anchor_tool_defaults_the_port_to_cuda():
+    tool = _tool("tools/prod_anchor_parity.py")
+    args, rest = tool.parse_args(["--package", "torch", "--out", "R",
+                                  "--ver", "1", "--board_size", "13"])
+    assert args.device == "cuda" and rest == ["--board_size", "13"]
+
+
+@pytest.mark.parametrize("limit_mb, kept", [(60.0, 40), (1.1, None)],
+                         ids=["whole", "oldest_records_left_out"])
+def test_run_carry_round_trip(limit_mb, kept, tmp_path):
+    """tools/run_carry.py packs what the proof resumes from and unpacks
+    it: the checkpoint `latest` names, bit for bit; promoted-<ver>.bin
+    without its optimizer slots; the small files; the journal's records
+    in order, the oldest left out when the limit is short."""
+    from elf_tpu_torch.models import checkpoint
+
+    carry = _tool("tools/run_carry.py")
+    out = tmp_path / "run"
+    jdir = out / "ckpt" / "journal"
+    jdir.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    lines = [json.dumps({"seq": i, "q": rng.integers(0, 255, 4000).tolist()})
+             + "\n" for i in range(40)]
+    (jdir / "records-0.jsonl").write_text("".join(lines[:25]))
+    (jdir / "records-1.jsonl").write_text("".join(lines[25:]))
+    tree = {"params": {"w": torch.arange(6, dtype=torch.float32)},
+            "batch_stats": {"m": torch.ones(2)},
+            "opt_state": {"w": torch.full((6,), 2.0)}, "step": 40}
+    blob = checkpoint.msgpack_serialize(tree)
+    (out / "ckpt" / "save-40.bin").write_bytes(blob)
+    os.symlink("save-40.bin", out / "ckpt" / "latest")
+    (out / "promoted-40.bin").write_bytes(blob)
+    (out / "progress.json").write_text('{"wall": 3200.0, "runs": 1}')
+    (out / "server.log").write_text("] PROMOTE eval 40 vs 0: wr=0.6\n")
+    (out / "client0.log").write_text("not carried\n")
+    (out / "init.bin").write_bytes(blob)
+
+    meta = carry.pack(str(out), str(tmp_path / "c.tar"), limit_mb)
+    assert meta["records"] == 40
+    back = tmp_path / "back"
+    got = carry.unpack(str(tmp_path / "c.tar"), str(back))
+    assert got["records_kept"] == meta["records_kept"]
+    n = meta["records_kept"]
+    if kept is not None:
+        assert n == kept
+    else:
+        assert 0 < n < 40
+        assert meta["archive_bytes"] <= limit_mb * 2 ** 20
+    assert (back / "ckpt" / "journal" / "records-0.jsonl").read_text() == \
+        "".join(lines[40 - n:])
+    assert os.readlink(back / "ckpt" / "latest") == "save-40.bin"
+    assert (back / "ckpt" / "save-40.bin").read_bytes() == blob
+    promoted = checkpoint.read_checkpoint(str(back / "promoted-40.bin"))
+    assert sorted(promoted) == ["batch_stats", "params", "step"]
+    assert torch.equal(promoted["params"]["w"], tree["params"]["w"])
+    assert (back / "progress.json").read_text() == \
+        '{"wall": 3200.0, "runs": 1}'
+    assert (back / "server.log").exists()
+    assert not (back / "client0.log").exists()
+    assert not (back / "init.bin").exists()

@@ -142,3 +142,53 @@ def test_committed_19x19_net_loads_and_matches_flax():
         lp_t, v_t = net(torch.from_numpy(x))
     np.testing.assert_allclose(lp_t.numpy(), np.asarray(lp_j), atol=1e-4)
     np.testing.assert_allclose(v_t.numpy(), np.asarray(v_j), atol=1e-4)
+
+
+def _replay_positions_13(games=8, plies=120, every=8, seed=13):
+    """AGZ planes of 13x13 positions from games of seeded random legal
+    moves, replayed through the port's GoState on the CPU."""
+    from elf_tpu_torch.env.go import features
+    from elf_tpu_torch.env.go import state as gostate
+
+    size = 13
+    rng = np.random.default_rng(seed)
+    st = gostate.init_state(games, size, "cpu")
+    codes = torch.zeros(games, dtype=torch.int32)
+    xs = []
+    for ply in range(plies):
+        if ply % every == every - 1:
+            xs.append(features.extract_agz(st, codes, size))
+        legal = gostate.legal_moves(st, size).numpy().astype(np.float64)
+        legal[:, -1] = 1e-3                    # rarely pass
+        a = [rng.choice(legal.shape[1], p=row / row.sum()) for row in legal]
+        st, info = gostate.step(st, torch.tensor(a, dtype=torch.int32), size)
+        assert not bool(info.illegal.any())
+    return torch.cat(xs).numpy()
+
+
+@pytest.mark.parametrize("name", ["init", "promoted-160"])
+def test_committed_13x13_nets_match_flax(name):
+    """The JAX 13x13 production run's frozen init and promoted ver 160
+    (10 blocks x 128 channels) through the port's `load_model` (the
+    reader and `params_from_jax`), at fp32, against flax on the same
+    weights, on positions of a 13x13 replay.  Tolerance: 3e-5 absolute on
+    log_pi (|log_pi| reaches 8 here, where a float32 ulp is 9.5e-7, and
+    the two frameworks sum 21 convolutions in different orders; 1.1e-5
+    was the largest difference seen) and 1e-5 on the tanh value."""
+    from elf_tpu_torch.models.resnet import load_model
+
+    path = os.path.join(ROOT, "runs", "prod13", f"{name}.bin")
+    net = load_model(path, ModelConfig(board_size=13, num_block=10, dim=128,
+                                       use_bf16=False), device="cpu")
+    x = _replay_positions_13()
+    assert x.shape == (120, 13, 13, 18)
+    fparams = flax.serialization.msgpack_restore(open(path, "rb").read())
+    lp_j, v_j = apply_fn(JModelConfig(board_size=13, num_block=10, dim=128,
+                                      use_bf16=False))(
+        fparams["params"], fparams["batch_stats"], jnp.asarray(x))
+    with torch.no_grad():
+        lp_t, v_t = net(torch.from_numpy(x))
+    np.testing.assert_allclose(lp_t.numpy(), np.asarray(lp_j), atol=3e-5,
+                               rtol=0)
+    np.testing.assert_allclose(v_t.numpy(), np.asarray(v_j), atol=1e-5,
+                               rtol=0)
