@@ -653,7 +653,11 @@ def profile_call(fn, what: str, card: str) -> dict:
     groups = {"liberty kernels": 0.0, "net conv/gemm": 0.0, "other": 0.0}
     by_name, n_kernels, syncs = {}, 0, 0
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
+            if e.name.startswith("elf."):
+                fail(f"profile: the program's span {e.name} counted as a "
+                     "device kernel")
             us = e.device_time_total if hasattr(e, "device_time_total") \
                 else e.cuda_time_total
             n_kernels += 1
@@ -896,7 +900,11 @@ def train_phase(card: str) -> dict:
     groups = {"conv/gemm": 0.0, "other": 0.0}
     by_name, n_kernels = {}, 0
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
+            if e.name.startswith("elf."):
+                fail(f"profile: the program's span {e.name} counted as a "
+                     "device kernel")
             us = e.device_time_total if hasattr(e, "device_time_total") \
                 else e.cuda_time_total
             n_kernels += 1

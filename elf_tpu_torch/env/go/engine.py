@@ -27,6 +27,7 @@ from elf_tpu_torch.device import DeviceLike, resolve_device
 from elf_tpu_torch.env.go import kernels
 from elf_tpu_torch.env.go.kernels import INF, shift
 from elf_tpu_torch.env.go.zobrist import zobrist_tables
+from elf_tpu_torch.profiling import read
 
 EMPTY, BLACK, WHITE = 0, 1, 2
 
@@ -298,7 +299,8 @@ def is_terminal_core(core: GoCore, size: int) -> torch.Tensor:
 
 def score_tromp_taylor(core: GoCore, size: int) -> torch.Tensor:
     """int32 [B]: (black stones+territory) - (white stones+territory), by
-    reachability flood fill (`simple_tt_scoring`, go_state.h:33-99)."""
+    reachability flood fill (`simple_tt_scoring`, go_state.h:33-99).  The
+    fill ends on a host read of whether it grew (`profiling.read`)."""
     B = core.stones.shape[0]
     s2d = core.stones.reshape(B, size, size)
     empty = s2d == EMPTY
@@ -311,7 +313,7 @@ def score_tromp_taylor(core: GoCore, size: int) -> torch.Tensor:
             for dr, dc in _DIRS:
                 grown = grown | shift(r, dr, dc, False)
             grown = grown & passable
-            if not bool((grown != r).any()):
+            if not read((grown != r).any()):
                 return grown
             r = grown
 

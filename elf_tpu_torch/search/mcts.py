@@ -36,6 +36,13 @@ host-chunked search), each with its cumulative batch offset.  The
 data-dependent loops (descent, ancestor walk, backprop, fixpoints) check
 their end condition on the host once per step.
 
+While tracing is on (`profiling`), each simulation batch records the
+spans `elf.mcts.select_expand`, `elf.mcts.evaluate` and `elf.mcts.backprop`
+and counts `search.batches`, every host read of a device value that
+`mcts_simulate` and its callees make (each through `profiling.read`)
+counts `search.host_reads`, and `mcts_root_prepare` records
+`elf.mcts.prepare`.
+
 A search over boards split across dp ranks (`shard`, a `BoardRows`) makes
 every random draw for all the boards on every rank and keeps its own
 rows, so each board's search is the unsharded one's.
@@ -59,6 +66,7 @@ from elf_tpu_torch.env.go.features import (
     extract_df_parts,
     inv_transform_policy,
 )
+from elf_tpu_torch.profiling import count, read, reads_counted_as, span
 
 NEG_INF = -1e9
 _KO_INACTIVE = 10_000
@@ -321,7 +329,7 @@ def _hash_in_ancestors(tree: Tree, node: torch.Tensor, h_lo: torch.Tensor,
     cur = node
     found = torch.zeros((B,), dtype=torch.bool, device=node.device)
     active = torch.ones_like(found)
-    while bool(active.any()):
+    while read(active.any()):
         safe = cur.clamp(0, N - 1)
         hit = active & (tree.hash_lo[rows, safe] == h_lo) & (
             tree.hash_hi[rows, safe] == h_hi)
@@ -350,7 +358,7 @@ def _select_and_expand(tree: Tree, cfg: MCTSConfig, size: int,
     if active is not None:
         done = done | ~active
     depth = 0
-    while depth < cfg.max_depth and not bool(done.all()):
+    while depth < cfg.max_depth and not read(done.all()):
         scores, new_umean = _puct_scores(tree, cur, cfg, depth == 0)
         a = torch.argmax(scores, dim=1)
         tree.umean_q[rows, cur] = torch.where(done, tree.umean_q[rows, cur],
@@ -474,7 +482,7 @@ def _leaf_last_placed(tree: Tree, rows: torch.Tensor, leaf: torch.Tensor,
     filled = torch.zeros((K, n2), dtype=torch.bool, device=leaf.device)
     cur = leaf
     active = torch.ones((K,), dtype=torch.bool, device=leaf.device)
-    while bool(active.any()):
+    while read(active.any()):
         safe = cur.clamp(0, N - 1)
         a = tree.parent_a[rows, safe].long()
         parent = tree.parent[rows, safe].long()
@@ -573,11 +581,11 @@ def _backprop_multi(tree: Tree, rows: torch.Tensor, leaves: torch.Tensor,
     duplicate (board, node) hits accumulate (index_put_ with accumulate)."""
     N = tree.stones.shape[1]
     cur, active = leaves, active0
-    while bool(active.any()):
+    while read(active.any()):
         safe = cur.clamp(0, N - 1)
         p = tree.parent[rows, safe].long()
         upd = active & (p >= 0)
-        idx = upd.nonzero().squeeze(1)
+        idx = read(upd, torch.nonzero).squeeze(1)
         at = (rows[idx], safe[idx])
         tree.n.index_put_(at, torch.ones_like(idx, dtype=torch.int32),
                           accumulate=True)
@@ -772,45 +780,47 @@ def mcts_root_prepare(root_core: GoCore, root_hist: torch.Tensor,
     root's raw prior.  A reused root keeps its value and its stored raw
     prior, so noise never compounds across moves.  `root_last_placed`
     [B, n2]: the game's placement plies, which df planes read."""
-    B = root_core.stones.shape[0]
-    dev = root_core.stones.device
-    if init_tree is None:
-        tree = fresh_tree(B, size, cfg.num_nodes, root_core)
-    else:
-        tree = init_tree
-
-    fresh = (~tree.expanded[:, 0]).nonzero().squeeze(1)
-    raw_prior = tree.root_raw_prior.clone()
-    codes = _root_codes(fresh, B, gen, cfg, dev, shard)
-    if fresh.numel():
-        root_ids = torch.zeros_like(fresh)
-        sub_core = GoCore(*(t[fresh] for t in root_core))
-        if cfg.feature_set == "df":
-            hist = _root_lp(root_last_placed, B, size, dev)[fresh]
+    with span("elf.mcts.prepare"):
+        B = root_core.stones.shape[0]
+        dev = root_core.stones.device
+        if init_tree is None:
+            tree = fresh_tree(B, size, cfg.num_nodes, root_core)
         else:
-            hist = _leaf_snapshots(tree, fresh, root_ids, root_hist,
-                                   root_hist_len)
-        prior_eval, value_eval = _evaluate_states(
-            _core_at(tree, fresh, root_ids), tree.terminal[fresh, 0], hist,
-            engine.legal_moves(sub_core, size), eval_fn, codes, cfg, size,
-            last_is_pass=sub_core.last_move >= size * size,
-        )
-        raw_prior[fresh] = prior_eval
-        tree.value[fresh, 0] = value_eval
-    prior = raw_prior
-    if cfg.root_epsilon > 0:
-        legal = prior >= 0
-        noise = dirichlet_noise(legal, cfg.root_alpha, gen, shard)
-        base = prior.clamp(min=0.0)
-        base = base / base.sum(dim=1, keepdim=True).clamp(min=1e-10)
-        mixed = (1 - cfg.root_epsilon) * base + cfg.root_epsilon * noise
-        prior = torch.where(legal, mixed, -1.0)
-    tree.prior[:, 0] = prior.to(torch.bfloat16)
-    tree.expanded[:, 0] = True
-    tree.root_raw_prior.copy_(raw_prior)
-    return tree
+            tree = init_tree
+
+        fresh = (~tree.expanded[:, 0]).nonzero().squeeze(1)
+        raw_prior = tree.root_raw_prior.clone()
+        codes = _root_codes(fresh, B, gen, cfg, dev, shard)
+        if fresh.numel():
+            root_ids = torch.zeros_like(fresh)
+            sub_core = GoCore(*(t[fresh] for t in root_core))
+            if cfg.feature_set == "df":
+                hist = _root_lp(root_last_placed, B, size, dev)[fresh]
+            else:
+                hist = _leaf_snapshots(tree, fresh, root_ids, root_hist,
+                                       root_hist_len)
+            prior_eval, value_eval = _evaluate_states(
+                _core_at(tree, fresh, root_ids), tree.terminal[fresh, 0],
+                hist, engine.legal_moves(sub_core, size), eval_fn, codes,
+                cfg, size, last_is_pass=sub_core.last_move >= size * size,
+            )
+            raw_prior[fresh] = prior_eval
+            tree.value[fresh, 0] = value_eval
+        prior = raw_prior
+        if cfg.root_epsilon > 0:
+            legal = prior >= 0
+            noise = dirichlet_noise(legal, cfg.root_alpha, gen, shard)
+            base = prior.clamp(min=0.0)
+            base = base / base.sum(dim=1, keepdim=True).clamp(min=1e-10)
+            mixed = (1 - cfg.root_epsilon) * base + cfg.root_epsilon * noise
+            prior = torch.where(legal, mixed, -1.0)
+        tree.prior[:, 0] = prior.to(torch.bfloat16)
+        tree.expanded[:, 0] = True
+        tree.root_raw_prior.copy_(raw_prior)
+        return tree
 
 
+@reads_counted_as("search.host_reads")
 def mcts_simulate(tree: Tree, root_hist: torch.Tensor,
                   root_hist_len: torch.Tensor, eval_fn: EvalFn,
                   gen: torch.Generator, cfg: MCTSConfig, size: int,
@@ -854,56 +864,65 @@ def mcts_simulate(tree: Tree, root_hist: torch.Tensor,
 
     for batch_idx in range(batch_offset, batch_offset + n_batches):
         active = None if budget is None else (batch_idx < budget)
-        leaves = torch.stack([
-            _select_and_expand(tree, cfg, size, game_hash_hist, active)
-            for _ in range(m)
-        ])                                                  # [m, B]
+        with span("elf.mcts.select_expand"):
+            leaves = torch.stack([
+                _select_and_expand(tree, cfg, size, game_hash_hist, active)
+                for _ in range(m)
+            ])                                                  # [m, B]
 
         # ---- one fused NN evaluation over all m*B leaves ----
-        safe = leaves.reshape(mB).clamp(0, N - 1)
-        flat_core = _core_at(tree, flat_rows, safe)
-        flat_term = tree.terminal[flat_rows, safe]
-        if df:
-            hist = _leaf_last_placed(tree, flat_rows, safe, root_lp, size)
-        else:
-            hist = _leaf_snapshots(tree, flat_rows, safe, root_hist,
-                                   root_hist_len)
-        flat_legal = tree.prior[flat_rows, safe] >= 0
-        flat_lip = tree.parent_a[flat_rows, safe].long() == A - 1
-        codes = _leaf_codes(m, B, gen, cfg, dev, shard)
-        parts = [
-            _evaluate_states(
-                GoCore(*(t[sl] for t in flat_core)), flat_term[sl],
-                hist[sl] if df else (hist[0][sl], hist[1][sl]),
-                flat_legal[sl], eval_fn, codes[sl], cfg, size,
-                last_is_pass=flat_lip[sl])
-            for sl in (slice(s, s + chunk) for s in range(0, mB, chunk))
-        ]
-        priors = torch.cat([p for p, _ in parts])
-        values = torch.cat([v for _, v in parts])
-        # superko-terminal leaves keep the stored next-player-wins value
-        flat_sk = tree.superko[flat_rows, safe]
-        values = torch.where(flat_sk, tree.value[flat_rows, safe], values)
+        with span("elf.mcts.evaluate"):
+            safe = leaves.reshape(mB).clamp(0, N - 1)
+            flat_core = _core_at(tree, flat_rows, safe)
+            flat_term = tree.terminal[flat_rows, safe]
+            if df:
+                hist = _leaf_last_placed(tree, flat_rows, safe, root_lp,
+                                         size)
+            else:
+                hist = _leaf_snapshots(tree, flat_rows, safe, root_hist,
+                                       root_hist_len)
+            flat_legal = tree.prior[flat_rows, safe] >= 0
+            flat_lip = tree.parent_a[flat_rows, safe].long() == A - 1
+            codes = _leaf_codes(m, B, gen, cfg, dev, shard)
+            parts = [
+                _evaluate_states(
+                    GoCore(*(t[sl] for t in flat_core)), flat_term[sl],
+                    hist[sl] if df else (hist[0][sl], hist[1][sl]),
+                    flat_legal[sl], eval_fn, codes[sl], cfg, size,
+                    last_is_pass=flat_lip[sl])
+                for sl in (slice(s, s + chunk) for s in range(0, mB, chunk))
+            ]
+            priors = torch.cat([p for p, _ in parts])
+            values = torch.cat([v for _, v in parts])
+            # superko-terminal leaves keep the stored next-player-wins
+            # value
+            flat_sk = tree.superko[flat_rows, safe]
+            values = torch.where(flat_sk, tree.value[flat_rows, safe], values)
 
-        # a leaf selected k > 1 times in this batch backprops once (its
-        # first occurrence) but removes all k virtual losses
-        eq = leaves[:, None, :] == leaves[None, :, :]       # [m, m, B]
-        flat_dup = (eq & earlier).any(dim=1).reshape(mB)
-        dup_count = eq.sum(dim=1, dtype=torch.int32).reshape(mB)
+            # a leaf selected k > 1 times in this batch backprops once (its
+            # first occurrence) but removes all k virtual losses
+            eq = leaves[:, None, :] == leaves[None, :, :]       # [m, m, B]
+            flat_dup = (eq & earlier).any(dim=1).reshape(mB)
+            dup_count = eq.sum(dim=1, dtype=torch.int32).reshape(mB)
 
-        # first occurrence of each fresh non-terminal leaf writes its
-        # prior, value and expanded flag; terminal leaves their value
-        write = ~flat_dup & ~tree.expanded[flat_rows, safe] & ~flat_term
-        at = write.nonzero().squeeze(1)
-        tree.prior[flat_rows[at], safe[at]] = priors[at].to(torch.bfloat16)
-        tree.expanded[flat_rows[at], safe[at]] = True
-        at = ((write | flat_term) & ~flat_dup).nonzero().squeeze(1)
-        tree.value[flat_rows[at], safe[at]] = values[at]
+            # first occurrence of each fresh non-terminal leaf writes its
+            # prior, value and expanded flag; terminal leaves their value
+            write = ~flat_dup & ~tree.expanded[flat_rows, safe] & ~flat_term
+            at = read(write, torch.nonzero).squeeze(1)
+            tree.prior[flat_rows[at], safe[at]] = priors[at].to(
+                torch.bfloat16)
+            tree.expanded[flat_rows[at], safe[at]] = True
+            at = read((write | flat_term) & ~flat_dup,
+                      torch.nonzero).squeeze(1)
+            tree.value[flat_rows[at], safe[at]] = values[at]
 
-        active0 = (~tree.terminal[:, 0]).repeat(m) & ~flat_dup
-        if active is not None:
-            active0 = active0 & active.repeat(m)
-        _backprop_multi(tree, flat_rows, safe, values, active0, dup_count, cfg)
+        with span("elf.mcts.backprop"):
+            active0 = (~tree.terminal[:, 0]).repeat(m) & ~flat_dup
+            if active is not None:
+                active0 = active0 & active.repeat(m)
+            _backprop_multi(tree, flat_rows, safe, values, active0,
+                            dup_count, cfg)
+        count("search.batches")
     return tree
 
 

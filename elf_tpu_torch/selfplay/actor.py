@@ -33,6 +33,9 @@ the host bookkeeping of all B boards from the per-move results gathered
 over the mesh's host group, so the sharded games are the unsharded
 actor's.  `play_moves` returns every record, in board order, on rank 0
 and [] on the other ranks.
+
+While tracing is on (`profiling`), a move's host copies of the search's
+results and its per-board record loop record the span `elf.actor.records`.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from elf_tpu_torch.search.mcts import (
     reset_tree_where,
     run_mcts,
 )
+from elf_tpu_torch.profiling import span
 from elf_tpu_torch.selfplay.records import MsgRequest, Record, make_record
 from elf_tpu_torch.sgf import game_from_moves, parse_sgf, serialize_sgf
 
@@ -401,40 +405,41 @@ class SelfplayActor:
         new_state, out = self._move(self.state, eval_fn, nr,
                                     float(self.resign_thres))
 
-        (was_terminated, to_play_before, ply_before, action, policy, value,
-         resign, terminated, score) = self._all_boards(
-            was_terminated, to_play_before, ply_before,
-            out.action.cpu().numpy(), out.mcts_policy.cpu().numpy(),
-            out.predicted_value.cpu().numpy(), out.resign.cpu().numpy(),
-            out.terminated.cpu().numpy(), out.final_score.cpu().numpy())
+        with span("elf.actor.records"):
+            (was_terminated, to_play_before, ply_before, action, policy, value,
+             resign, terminated, score) = self._all_boards(
+                was_terminated, to_play_before, ply_before,
+                out.action.cpu().numpy(), out.mcts_policy.cpu().numpy(),
+                out.predicted_value.cpu().numpy(), out.resign.cpu().numpy(),
+                out.terminated.cpu().numpy(), out.final_score.cpu().numpy())
 
-        records: List[Record] = []
-        finished = np.zeros(B, bool)
-        for b in range(B):
-            if was_terminated[b]:
-                continue
-            if resign[b]:
-                reward = -1.0 if int(to_play_before[b]) == BLACK else 1.0
-                records.append(self._emit(b, reward, request))
-                finished[b] = True
-                continue
-            self.moves[b].append(int(action[b]))
-            store_pi = (
-                cfg.policy_distri_training_for_all
-                or int(ply_before[b]) <= cfg.policy_distri_cutoff
-            )
-            self.policies[b].append(policy[b] if store_pi else None)
-            self.values[b].append(float(value[b]))
-            hit_cutoff = (cfg.move_cutoff > 0
-                          and len(self.moves[b]) >= cfg.move_cutoff)
-            if terminated[b] or hit_cutoff:
-                reward = float(np.sign(score[b])) or 1.0
-                if cfg.cheat_selfplay_random_result:
-                    reward = float(self.rng.choice([-1.0, 1.0]))
-                if self.reward_override_fn is not None:
-                    reward = float(self.reward_override_fn(b))
-                records.append(self._emit(b, reward, request))
-                finished[b] = True
+            records: List[Record] = []
+            finished = np.zeros(B, bool)
+            for b in range(B):
+                if was_terminated[b]:
+                    continue
+                if resign[b]:
+                    reward = -1.0 if int(to_play_before[b]) == BLACK else 1.0
+                    records.append(self._emit(b, reward, request))
+                    finished[b] = True
+                    continue
+                self.moves[b].append(int(action[b]))
+                store_pi = (
+                    cfg.policy_distri_training_for_all
+                    or int(ply_before[b]) <= cfg.policy_distri_cutoff
+                )
+                self.policies[b].append(policy[b] if store_pi else None)
+                self.values[b].append(float(value[b]))
+                hit_cutoff = (cfg.move_cutoff > 0
+                              and len(self.moves[b]) >= cfg.move_cutoff)
+                if terminated[b] or hit_cutoff:
+                    reward = float(np.sign(score[b])) or 1.0
+                    if cfg.cheat_selfplay_random_result:
+                        reward = float(self.rng.choice([-1.0, 1.0]))
+                    if self.reward_override_fn is not None:
+                        reward = float(self.reward_override_fn(b))
+                    records.append(self._emit(b, reward, request))
+                    finished[b] = True
 
         self.state = new_state
         if finished.any():

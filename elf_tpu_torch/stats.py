@@ -83,18 +83,19 @@ class MultiCounter:
 
 
 class RLTimer:
-    """Wall time per named stage (trainer/timer.py:12)."""
+    """Wall time per named stage (trainer/timer.py:12), on the monotonic
+    clock."""
 
     def __init__(self):
         self.restart()
 
     def restart(self) -> None:
-        self.overall = time.time()
+        self.overall = time.perf_counter()
         self.last = self.overall
         self.records: Dict[str, ValueStats] = defaultdict(ValueStats)
 
     def record(self, name: str) -> None:
-        now = time.time()
+        now = time.perf_counter()
         self.records[name].feed(now - self.last)
         self.last = now
 

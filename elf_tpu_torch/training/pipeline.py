@@ -15,6 +15,9 @@ come in the JAX package's order, so equal seeds give equal batches.
 With `feature_set="df"` a batch also carries each position's board, ko
 point, ply and placement plies, from which the device builds the 25 df
 planes (`extract_df_parts`).
+
+While tracing is on (`profiling`), sampling records the span
+`elf.pipeline.sample` and the feature extraction `elf.pipeline.features`.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from elf_tpu_torch.env.go.features import (
 from elf_tpu_torch.env.go.state import MAX_AGZ_HISTORY
 from elf_tpu_torch.native.replayer import replay_to_snapshots
 from elf_tpu_torch.native.sgf_codec import sgf_string_to_moves
+from elf_tpu_torch.profiling import span
 from elf_tpu_torch.selfplay.records import Record, dequantize_policy
 from elf_tpu_torch.training.replay import ReplayBuffer
 
@@ -165,59 +169,61 @@ class TrainingPipeline:
         self.replay.insert(ReplayItem(record, self.size))
 
     def sample_host_batch(self, batch_size: int) -> Optional[HostBatch]:
-        items = self.replay.sample_many(batch_size)
-        if len(items) < batch_size:
-            return None
-        n2, A, H = self.n2, self.A, MAX_AGZ_HISTORY
-        snaps = np.zeros((batch_size, H, n2), np.int8)
-        valid = np.zeros((batch_size, H), bool)
-        to_play = np.zeros((batch_size,), np.int8)
-        if self.data_aug >= 0:
-            codes = np.full(batch_size, self.data_aug % 8, np.int32)
-        else:
-            codes = self.rng.randint(0, 8, size=batch_size).astype(np.int32)
-        pi = np.zeros((batch_size, A), np.float32)
-        winner = np.zeros((batch_size,), np.float32)
-        selfplay_ver = np.zeros((batch_size,), np.int64)
-        T = self.num_future_actions
-        offline_a = np.full((batch_size, T), n2, np.int32)  # pass-padded
-        df = self._df_fields(batch_size)
-        for i, item in enumerate(items):
-            selfplay_ver[i] = item.record.request.vers.black_ver
-            L = len(item.moves)
-            if L == 0:
-                valid[i] = False
-                to_play[i] = item.first_player
-                pi[i, n2] = 1.0
-                winner[i] = 1.0 if item.black_win else -1.0
-                if df:
-                    df["stones"][i] = item.setup_board
-                    df["last_placed"][i] = item.last_placed_at(0, n2)
-                continue
-            # position after `ply` moves; predict the move made at `ply`
-            # (game_train.cc switchRandomMove)
-            ply = int(self.rng.randint(L))
-            # snapshots ending at the position (oldest first)
-            n_avail = min(ply, H)
-            for j in range(n_avail):
-                snaps[i, H - 1 - j] = item.snapshots[ply - 1 - j]
-                valid[i, H - 1 - j] = True
-            to_play[i] = item.to_play_at(ply)
-            if df:
-                df["stones"][i] = item.board_at(ply)
-                df["ko_point"][i] = item.ko_at(ply, self.size)
-                df["ply"][i] = ply
-                df["last_placed"][i] = item.last_placed_at(ply, n2)
-            pols = item.record.result.policies
-            if ply < len(pols) and (pols[ply].get("idx") or []):
-                pi[i] = dequantize_policy(pols[ply], A)
+        with span("elf.pipeline.sample"):
+            items = self.replay.sample_many(batch_size)
+            if len(items) < batch_size:
+                return None
+            n2, A, H = self.n2, self.A, MAX_AGZ_HISTORY
+            snaps = np.zeros((batch_size, H, n2), np.int8)
+            valid = np.zeros((batch_size, H), bool)
+            to_play = np.zeros((batch_size,), np.int8)
+            if self.data_aug >= 0:
+                codes = np.full(batch_size, self.data_aug % 8, np.int32)
             else:
-                pi[i, item.moves[ply]] = 1.0
-            winner[i] = 1.0 if item.black_win else -1.0
-            for k in range(min(T, L - ply)):
-                offline_a[i, k] = item.moves[ply + k]
-        return HostBatch(snaps, valid, to_play, codes, pi, winner,
-                         selfplay_ver, offline_a, **df)
+                codes = self.rng.randint(0, 8, size=batch_size).astype(
+                    np.int32)
+            pi = np.zeros((batch_size, A), np.float32)
+            winner = np.zeros((batch_size,), np.float32)
+            selfplay_ver = np.zeros((batch_size,), np.int64)
+            T = self.num_future_actions
+            offline_a = np.full((batch_size, T), n2, np.int32)  # pass-padded
+            df = self._df_fields(batch_size)
+            for i, item in enumerate(items):
+                selfplay_ver[i] = item.record.request.vers.black_ver
+                L = len(item.moves)
+                if L == 0:
+                    valid[i] = False
+                    to_play[i] = item.first_player
+                    pi[i, n2] = 1.0
+                    winner[i] = 1.0 if item.black_win else -1.0
+                    if df:
+                        df["stones"][i] = item.setup_board
+                        df["last_placed"][i] = item.last_placed_at(0, n2)
+                    continue
+                # position after `ply` moves; predict the move made at `ply`
+                # (game_train.cc switchRandomMove)
+                ply = int(self.rng.randint(L))
+                # snapshots ending at the position (oldest first)
+                n_avail = min(ply, H)
+                for j in range(n_avail):
+                    snaps[i, H - 1 - j] = item.snapshots[ply - 1 - j]
+                    valid[i, H - 1 - j] = True
+                to_play[i] = item.to_play_at(ply)
+                if df:
+                    df["stones"][i] = item.board_at(ply)
+                    df["ko_point"][i] = item.ko_at(ply, self.size)
+                    df["ply"][i] = ply
+                    df["last_placed"][i] = item.last_placed_at(ply, n2)
+                pols = item.record.result.policies
+                if ply < len(pols) and (pols[ply].get("idx") or []):
+                    pi[i] = dequantize_policy(pols[ply], A)
+                else:
+                    pi[i, item.moves[ply]] = 1.0
+                winner[i] = 1.0 if item.black_win else -1.0
+                for k in range(min(T, L - ply)):
+                    offline_a[i, k] = item.moves[ply + k]
+            return HostBatch(snaps, valid, to_play, codes, pi, winner,
+                             selfplay_ver, offline_a, **df)
 
     def _df_fields(self, batch_size: int) -> dict:
         """The df inputs of a batch, empty; {} for the AGZ planes."""
@@ -248,17 +254,19 @@ class TrainingPipeline:
 
     def _features(self, hb: HostBatch, dev: torch.device):
         """(AGZ or df planes, D4 codes) of a host batch, on `dev`."""
-        to = lambda a: torch.from_numpy(a).to(dev)
-        codes = to(hb.codes)
-        if self.feature_set == "df":
-            ko_point = to(hb.ko_point)
-            feats = extract_df_parts(
-                to(hb.stones), to(hb.to_play), ko_point, ko_point >= 0,
-                to(hb.ply), to(hb.last_placed), codes, self.size)
-        else:
-            feats = extract_agz_from_snapshots(
-                to(hb.snaps), to(hb.valid), to(hb.to_play), codes, self.size)
-        return feats, codes
+        with span("elf.pipeline.features"):
+            to = lambda a: torch.from_numpy(a).to(dev)
+            codes = to(hb.codes)
+            if self.feature_set == "df":
+                ko_point = to(hb.ko_point)
+                feats = extract_df_parts(
+                    to(hb.stones), to(hb.to_play), ko_point, ko_point >= 0,
+                    to(hb.ply), to(hb.last_placed), codes, self.size)
+            else:
+                feats = extract_agz_from_snapshots(
+                    to(hb.snaps), to(hb.valid), to(hb.to_play), codes,
+                    self.size)
+            return feats, codes
 
     def device_batch(self, hb: HostBatch, device: DeviceLike = "cuda"):
         """(features [B, N, N, 18 | 25], pi_target [B, A] under the batch's

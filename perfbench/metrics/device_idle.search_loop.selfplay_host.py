@@ -1,0 +1,6 @@
+"""`device_idle.search_loop.selfplay`, in the host-bound self-play cell (it moves
+`selfplay_rollouts_per_s.host_bound`)."""
+
+from harness.core import metric_reader
+
+read = metric_reader("device_idle.search_loop.selfplay")

@@ -14,6 +14,7 @@ import json
 import os
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -891,8 +892,28 @@ def test_profiler_timers_and_trace(tmp_path):
     files = os.listdir(tmp_path / "trace")
     assert len(files) == 1 and files[0].endswith(".json")
     text = (tmp_path / "trace" / files[0]).read_text()
-    assert "train_episode" in text
+    assert '"elf.train_episode"' in text
     assert traced.timer.records["train_episode"].counter == 1
+
+
+def test_profiler_phase_waits_for_the_card_on_a_monotonic_clock(
+        monkeypatch):
+    """Each stage boundary synchronises the card once CUDA is initialised
+    (so a stage times its work, not its enqueue), on perf_counter."""
+    clock = iter([10.0, 10.5, 12.0])
+    monkeypatch.setattr(tstats, "time", types.SimpleNamespace(
+        perf_counter=lambda: next(clock)))
+    syncs = []
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: syncs.append("sync"))
+    prof = Profiler()
+    with prof.phase("selfplay_moves"):
+        assert syncs == ["sync"]
+    assert syncs == ["sync", "sync"]
+    rec = prof.timer.records
+    assert rec["before_selfplay_moves"].summation == pytest.approx(0.5)
+    assert rec["selfplay_moves"].summation == pytest.approx(1.5)
 
 
 # ---------------------------------------------------------------------------
