@@ -19,12 +19,23 @@ Phases:
      CUDA-graph replay, the profiler's kernel time beside it, the host
      cost of one wrapper call, the plain version's time and the byte
      bound;
+ 3b. epilogue: the serving trunk's epilogue kernel
+     (`csrc/net_epilogue.cu`) against its plain version, bit for bit, at
+     every trunk layer of the committed 19x19 20b256c and 13x13 10b128c
+     nets on mid-game positions (19x19 B = 1, 32, 2048; 13x13 B = 192,
+     1536), both forms (without and with the skip); each serving forward
+     against today's modules (max abs difference of log_pi and value,
+     within tests/test_torch_resnet.py's bf16 bounds); the kernel timed
+     at 19x19 B = 2048 and 13x13 B = 1536 by graph replay beside its byte
+     bound (at least 60 % of it at B = 2048), its host cost and the plain
+     version's time, and the serving forward against the modules';
   4. slice: the 19x19 20-block 256-channel net with the committed weights
      (runs/prove19/export-best.bin) drives SelfplayActor (B = 32, 64
      rollouts, 8 per batch, Dirichlet noise) for 6 moves, with the launch
-     counts set to 0 just before; both kernels must have launched, and
-     every move is replayed on the host (plain versions, not the kernels)
-     to check it legal and the boards equal;
+     counts set to 0 just before; both kernels must have launched, the
+     epilogue kernel 41 times a forward, and every move is replayed on
+     the host (plain versions, not the kernels) to check it legal and the
+     boards equal;
   5. records: 9x9 games with a seeded small net until move_cutoff = 20;
      every Record survives a JSON round trip and replays on the host to
      the boards the actor played; then the same with persistent search
@@ -259,6 +270,17 @@ TACTICS_BOARDS, TACTICS_PLY, EYE_BOARDS = 8, 80, 1024
 # crosses the host 21 times there)
 PAR_BATCH, PAR_STEPS, PAR_TIMED, PAR_TOL = 256, 3, 2, 1e-4
 PAR_B, PAR_MOVES, PAR_TP_ROLLOUTS = 32, 2, 16
+# the serving trunk's epilogue kernel: (board, net, batch, plies) of the
+# checks (the go19 self-play cell's root and 2048-leaf evaluations, the
+# slice's B; the go13 cell's root and 192 x 8-leaf evaluations), the
+# shapes timed, and the serving forward's tolerance against the modules'
+# (tests/test_torch_resnet.py's bf16 bounds on log_pi and value)
+EPI_NETS = {19: ("runs/prove19/export-best.bin", 20, 256),
+            13: ("runs/prod13/promoted-160.bin", 10, 128)}
+EPI_SHAPES = ((19, 1, 120), (19, 32, 120), (19, 2048, 120),
+              (13, 192, 60), (13, 1536, 60))
+EPI_TIMED = ((19, 2048), (13, 1536))
+EPI_TOL = (3e-2, 1e-2)
 
 
 def log(msg: str) -> None:
@@ -538,6 +560,159 @@ def kernel_phase(rng) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the serving trunk's epilogue kernel
+# ---------------------------------------------------------------------------
+
+
+def midgame_features(B: int, size: int, plies: int, seed: int):
+    """The search's input layout (an NHWC view of NCHW planes) of boards
+    after `plies` random legal moves, the position alone as history."""
+    from elf_tpu_torch.env.go import features
+
+    core = played_boards(B, size, plies, seed)
+    snaps = core.stones[:, None, :].expand(B, 8, size * size)
+    valid = torch.zeros((B, 8), dtype=torch.bool, device=core.stones.device)
+    valid[:, -1] = True
+    codes = torch.zeros(B, dtype=torch.int32, device=core.stones.device)
+    return features.extract_agz_from_snapshots(snaps, valid, core.to_play,
+                                               codes, size)
+
+
+def epilogue_layers(frozen, x):
+    """The inputs of each trunk epilogue of `frozen.serve(x)`, layer by
+    layer (the next layer's input is the plain version's output): the
+    convolution's output without its bias, the BN constants, the conv bias
+    and, after a block's second convolution, the block's input."""
+    import torch.nn.functional as F
+
+    from elf_tpu_torch.models.epilogue import epilogue_ref
+
+    muls = iter(frozen.serving_muls)
+    h = x.permute(0, 3, 1, 2).to(frozen.cfg.compute_dtype,
+                                  memory_format=torch.channels_last)
+    seq = [(frozen.init_conv, frozen.init_bn, False)]
+    for blk in frozen.blocks:
+        seq += [(blk.conv1, blk.bn1, False), (blk.conv2, blk.bn2, True)]
+    block_in = None
+    for conv, bn, skips in seq:
+        args = dict(v=F.conv2d(h, conv.weight, None, padding=conv.padding),
+                    mean=bn.running_mean, mul=next(muls), bias=bn.bias,
+                    skip=block_in if skips else None, conv_bias=conv.bias)
+        yield args
+        h = epilogue_ref(**args)
+        if skips or block_in is None:
+            block_in = h
+
+
+def todays_serving_copy(net):
+    """The serving copy as the modules serve it (no serving path)."""
+    from elf_tpu_torch.models.resnet import Conv
+
+    frozen = copy.deepcopy(net).requires_grad_(False)
+    for m in frozen.modules():
+        if isinstance(m, Conv):
+            m.to(m.dtype)
+    return frozen
+
+
+def epilogue_phase(card: str) -> dict:
+    """The epilogue kernel against its plain version, bit for bit, at every
+    trunk layer of both committed nets on mid-game positions (both forms:
+    without and with the skip); the serving forward against today's
+    modules; the kernel timed by graph replay beside its byte bound, its
+    host cost and the plain version."""
+    from elf_tpu_torch.models import epilogue as epi
+    from elf_tpu_torch.models.resnet import (ModelConfig, load_model,
+                                             serving_copy)
+
+    dev = torch.device("cuda")
+    nets, checks, forward = {}, {}, {}
+    for size, (path, blocks, dim) in EPI_NETS.items():
+        cfg = ModelConfig(board_size=size, num_block=blocks, dim=dim)
+        net = load_model(str(ROOT / path), cfg, "cuda")
+        nets[size] = (serving_copy(net), todays_serving_copy(net))
+        if nets[size][0].serving_muls is None:
+            fail(f"epilogue: the {size}x{size} serving copy has no serving "
+                 "path")
+    for size, B, plies in EPI_SHAPES:
+        frozen, today = nets[size]
+        x = midgame_features(B, size, plies, seed=B)
+        forms = {"plain": 0, "skip": 0}
+        for args in epilogue_layers(frozen, x):
+            got = epi.epilogue_cuda(**args)
+            ref = epi.epilogue_ref(**args)
+            torch.cuda.synchronize()
+            dt = torch.int16        # compare bf16 bit patterns
+            if got.dtype != ref.dtype or not got.is_contiguous(
+                    memory_format=torch.channels_last) or not torch.equal(
+                    got.view(dt), ref.view(dt)):
+                fail(f"epilogue: the kernel differs from the plain version "
+                     f"at {size}x{size} B {B}, layer "
+                     f"{sum(forms.values())}")
+            forms["skip" if args["skip"] is not None else "plain"] += 1
+        checks[f"{size}x{size} B={B}"] = forms
+        with torch.no_grad():
+            new = frozen(x)
+            old = today(x)
+        torch.cuda.synchronize()
+        err = [float((a - b).abs().max()) for a, b in zip(new, old)]
+        same = all(torch.equal(a, b) for a, b in zip(new, old))
+        forward[f"{size}x{size} B={B}"] = dict(
+            log_pi_max_abs=err[0], value_max_abs=err[1], bitwise=same)
+        if not (err[0] <= EPI_TOL[0] and err[1] <= EPI_TOL[1]):
+            fail(f"epilogue: the serving forward at {size}x{size} B {B} "
+                 f"differs from the modules' by {err} (tolerance {EPI_TOL})")
+        log(f"epilogue: {size}x{size} B {B}: kernel equal to the plain "
+            f"version bit for bit at {forms['plain']} layers without and "
+            f"{forms['skip']} with the skip; serving forward against the "
+            f"modules': log_pi {err[0]:.3g}, value {err[1]:.3g} max abs "
+            f"({'bit for bit' if same else 'not bit for bit'})")
+
+    timings = {}
+    for size, B in EPI_TIMED:
+        frozen, today = nets[size]
+        x = midgame_features(B, size, 120 if size == 19 else 60, seed=B)
+        gen = epilogue_layers(frozen, x)
+        layers = [next(gen) for _ in range(3)]
+        for form, args in (("plain", layers[1]), ("skip", layers[2])):
+            n = args["v"].numel()
+            C = args["v"].shape[1]
+            nbytes = (n * (6 if form == "skip" else 4)
+                      + C * (3 * 4 + args["v"].element_size()))
+            ms = [graph_ms(lambda: epi.epilogue_cuda(**args), 50)
+                  for _ in range(2)]
+            t = dict(bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                     ms=float(np.mean(ms)), ms_turns=ms,
+                     profiler_ms=profiler_ms(
+                         lambda: epi.epilogue_cuda(**args), "epilogue_kernel",
+                         50),
+                     host_ms=host_ms(lambda: epi.epilogue_cuda(**args), 200),
+                     plain_ms=cuda_time_ms(
+                         lambda: epi.epilogue_ref(**args), 5))
+            t["bound_share"] = t["bound_ms"] / t["ms"]
+            timings[f"{size}x{size} B={B} {form}"] = t
+            log(f"epilogue: {size}x{size} B {B} {form}: device {t['ms']:.6f} "
+                f"ms/launch (graph replay; turns "
+                f"{', '.join(f'{v:.6f}' for v in ms)}), bound "
+                f"{t['bound_ms']:.6f} ms ({nbytes} bytes; "
+                f"{100 * t['bound_share']:.1f} % of it), host "
+                f"{t['host_ms']:.6f} ms/call, plain {t['plain_ms']:.4f} ms")
+        with torch.no_grad():
+            fwd = {"change": [], "today": []}
+            for which in ("today", "change", "change", "today"):
+                net = frozen if which == "change" else today
+                fwd[which].append(cuda_time_ms(lambda: net(x), 5))
+        timings[f"{size}x{size} B={B} forward"] = fwd
+        log(f"epilogue: {size}x{size} B {B}: the serving forward "
+            f"{np.mean(fwd['change']):.3f} ms, today's modules "
+            f"{np.mean(fwd['today']):.3f} ms (CUDA events, in turns)")
+    big = timings["19x19 B=2048 plain"]["bound_share"]
+    if big < 0.6:
+        fail(f"epilogue: {100 * big:.1f} % of the byte bound at B 2048")
+    return {"checks": checks, "forward": forward, "timings": timings}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the self-play slice at full width
 # ---------------------------------------------------------------------------
 
@@ -567,6 +742,7 @@ def replay_is_legal(moves_per_board, size: int, handicap: int = 0):
 
 def slice_phase(card: str):
     from elf_tpu_torch.env.go import kernels
+    from elf_tpu_torch.models import epilogue
     from elf_tpu_torch.models.resnet import ModelConfig, eval_fn_builder, load_model
     from elf_tpu_torch.search.mcts import MCTSConfig
     from elf_tpu_torch.selfplay.actor import ActorConfig, SelfplayActor
@@ -581,6 +757,7 @@ def slice_phase(card: str):
     )
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    epilogue.launches = 0
     move_s = []
     for _ in range(SLICE_MOVES):
         t0 = time.perf_counter()
@@ -590,6 +767,10 @@ def slice_phase(card: str):
         if records:
             fail("a game ended within the first moves")
     launches = kernels.launch_counts()
+    # every serving forward: 41 trunk epilogues (the first layer, 2 a block)
+    launches["net_epilogue"] = epilogue.launches
+    if epilogue.launches <= 0 or epilogue.launches % (2 * cfg.num_block + 1):
+        fail(f"net_epilogue: {epilogue.launches} launches in the slice")
 
     per_move = {"step_analysis": SLICE_ROLLOUTS + 1, "analyze_libs": 1}
     for name, n in per_move.items():
@@ -618,7 +799,8 @@ def slice_phase(card: str):
         f"{out['rollouts_per_s']:.1f} rollouts/s, "
         f"{out['leaf_evals_per_s']:.1f} leaf-evals/s on {card}")
     log(f"slice: launches {launches} (expected {SLICE_ROLLOUTS + 1} "
-        "step_analysis + 1 analyze_libs per move)")
+        "step_analysis + 1 analyze_libs per move, 41 net_epilogue a "
+        "forward)")
     return out, net
 
 
@@ -3763,13 +3945,14 @@ def main() -> int:
     log(f"card: {card} | torch {torch.__version__} | CUDA "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
-    t0 = time.perf_counter()
-    path, text = _build.build("go_libs")
-    log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in text.splitlines():      # registers, smem, spills per kernel
-        if any(w in line for w in ("entry function", "registers", "spill",
-                                   "smem")):
-            log(f"build: {line.strip()}")
+    for name in ("go_libs", "net_epilogue"):     # the CUDA kernels
+        t0 = time.perf_counter()
+        path, text = _build.build(name)
+        log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
+        for line in text.splitlines():  # registers, smem, spills per kernel
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "smem")):
+                log(f"build: {line.strip()}")
     for name in ("replayer", "ladder", "sgf_codec"):    # the host C code
         t0 = time.perf_counter()
         path, _ = _build.build(name)
@@ -3777,6 +3960,7 @@ def main() -> int:
 
     result = {"card": card, "kind": kind}
     result["kernels"] = kernel_phase(np.random.default_rng(0))
+    result["epilogue"] = epilogue_phase(card)
     result["slice"], net = slice_phase(card)
     result["records"] = record_phase()
     result["train"] = train_phase(card)
@@ -3828,6 +4012,19 @@ def main() -> int:
                     "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"]}
                 for (n, boards, B), v in k["timings"].items() if n == name},
         })
+    e = result["epilogue"]["timings"]
+    rows.append({
+        "name": "net_epilogue", "route": "cuda",
+        "source": "elf_tpu_torch/csrc/net_epilogue.cu", "replaces": None,
+        "launches": result["slice"]["launches"]["net_epilogue"],
+        "max_abs_err": 0, "ms": e["19x19 B=2048 plain"]["ms"],
+        "plain_ms": e["19x19 B=2048 plain"]["plain_ms"],
+        "bound_ms": e["19x19 B=2048 plain"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "shape": "19x19 C=256 B=2048, no skip",
+        "host_ms": e["19x19 B=2048 plain"]["host_ms"],
+        "by_shape": {k_: v for k_, v in e.items()
+                     if not k_.endswith("forward")},
+    })
     k["timings"] = {f"{n} {boards} B={B}": v
                     for (n, boards, B), v in k["timings"].items()}
     out_dir = ROOT / "chiprun_out"

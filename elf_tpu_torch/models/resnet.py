@@ -36,6 +36,20 @@ is set holds its tp shard and runs as a column- or row-parallel layer,
 and a BatchNorm whose `channels` is set normalises that slice of the
 channels.  Without a mesh these attributes are None and the forward is
 the plain one, bit for bit.
+
+The serving path (`PolicyValueNet.serve`).  A serving copy without mesh
+attributes, whose channels are a multiple of 8, holds each trunk BN's
+`rsqrt(running_var + eps) * weight`, computed once with the same torch ops
+as the forward computes it.  Its forward on a CUDA input keeps every trunk
+activation NHWC (`torch.channels_last`, the layout of cuDNN's kernels; the
+copy's conv weights are stored so) and runs each trunk convolution without
+its bias, then one epilogue kernel (`models/epilogue.py`): the bias add,
+BN, ReLU, the casts and, after a block's second convolution, the skip add
+and its ReLU, with the modules' roundings and order of operations, so it
+gives their bits (cuDNN may pick another convolution algorithm for the
+NHWC layout, which can move a forward's last bits).  The heads, the
+training forward, `PolicyNet` and a sharded net keep the modules.  `net.forwards` counts serving forwards and `net.epilogues`
+the epilogues while tracing is on.
 """
 
 from __future__ import annotations
@@ -50,7 +64,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from elf_tpu_torch import profiling
 from elf_tpu_torch.device import DeviceLike, resolve_device
+from elf_tpu_torch.models.epilogue import epilogue
 
 BN_EPS = 1e-5
 
@@ -226,6 +242,13 @@ class PolicyValueNet(nn.Module):
         self.v_bn = BatchNorm(1, m)
         self.v_fc1 = Dense(cfg.board_size ** 2, cfg.value_hidden)
         self.v_fc2 = Dense(cfg.value_hidden, 1)
+        # a serving copy's trunk BN multipliers, in trunk order (`serving_copy`)
+        self.serving_muls: Optional[list] = None
+
+    def takes_serving_path(self, x: torch.Tensor, train: bool) -> bool:
+        """Whether `forward` runs `serve`: a serving copy that can, a CUDA
+        input, the running statistics."""
+        return not train and x.is_cuda and self.serving_muls is not None
 
     def forward(self, x: torch.Tensor,
                 train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -233,8 +256,9 @@ class PolicyValueNet(nn.Module):
         `train` selects the batch statistics and updates the running ones,
         once, after the forward; with `cfg.remat` it recomputes each block
         in the backward pass."""
+        if self.takes_serving_path(x, train):
+            return self.serve(x)
         dt = self.cfg.compute_dtype
-        B = x.shape[0]
         stats = [] if train else None
         h = x.permute(0, 3, 1, 2).to(dt)
         h = F.relu(_bn(self.init_bn, self.init_conv(h), stats)).to(dt)
@@ -245,18 +269,60 @@ class PolicyValueNet(nn.Module):
                 h, bs = block(h, train)
             if train:
                 stats += bs
-        p = F.relu(_bn(self.pi_bn, self.pi_conv(h), stats))
-        p = p.permute(0, 2, 3, 1).reshape(B, -1)        # NHWC flatten
-        log_pi = F.log_softmax(self.pi_fc(p), dim=-1)
-        v = F.relu(_bn(self.v_bn, self.v_conv(h), stats)).reshape(B, -1)
-        v = self.v_fc2(F.relu(self.v_fc1(v)))
+        log_pi, value = self._heads(h, stats)
         if train:
             bns = [self.init_bn]
             bns += [bn for blk in self.blocks for bn in (blk.bn1, blk.bn2)]
             bns += [self.pi_bn, self.v_bn]
             for bn, mean, var in zip(bns, stats[0::2], stats[1::2]):
                 bn.update_running(mean, var)
+        return log_pi, value
+
+    def _heads(self, h: torch.Tensor, stats: Optional[list]):
+        """(log_pi, value) of the trunk's output h."""
+        B = h.shape[0]
+        p = F.relu(_bn(self.pi_bn, self.pi_conv(h), stats))
+        p = p.permute(0, 2, 3, 1).reshape(B, -1)        # NHWC flatten
+        log_pi = F.log_softmax(self.pi_fc(p), dim=-1)
+        v = F.relu(_bn(self.v_bn, self.v_conv(h), stats)).reshape(B, -1)
+        v = self.v_fc2(F.relu(self.v_fc1(v)))
         return log_pi, torch.tanh(v[:, 0])
+
+    def trunk_bns(self) -> list:
+        """The trunk's BN layers in order: the first layer's, then each
+        block's two."""
+        return [self.init_bn] + [bn for blk in self.blocks
+                                 for bn in (blk.bn1, blk.bn2)]
+
+    def serve(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The serving path of a serving copy (`serving_copy`): `forward`
+        with the running statistics, each trunk BN (with its ReLU, casts
+        and skip add) one epilogue.  `forward` takes it on a CUDA input; on
+        a CPU input the epilogues are the plain version."""
+        profiling.count("net.forwards")
+        muls = iter(self.serving_muls)
+        h = x.permute(0, 3, 1, 2).to(self.cfg.compute_dtype,
+                                      memory_format=torch.channels_last)
+        h = _trunk_layer(self.init_conv, self.init_bn, next(muls), h)
+        for blk in self.blocks:
+            y = _trunk_layer(blk.conv1, blk.bn1, next(muls), h)
+            h = _trunk_layer(blk.conv2, blk.bn2, next(muls), y, skip=h)
+        return self._heads(h, None)
+
+
+def _trunk_layer(conv: Conv, bn: BatchNorm, mul: torch.Tensor,
+                 h: torch.Tensor, skip: Optional[torch.Tensor] = None):
+    """relu(bn(conv(h))), or with `skip` relu(skip + relu(bn(conv(h)))),
+    in the compute dtype: the convolution, then one epilogue.  cuDNN adds a
+    convolution's bias as a pass of its own, rounded to the compute dtype,
+    so on the card the epilogue takes that add; the CPU's convolution adds
+    the bias inside."""
+    if h.is_cuda:
+        v, conv_bias = F.conv2d(h, conv.weight, None,
+                                padding=conv.padding), conv.bias
+    else:
+        v, conv_bias = conv(h), None
+    return epilogue(v, bn.running_mean, mul, bn.bias, skip, conv_bias)
 
 
 # 1 / stddev of a unit normal truncated to (-2, 2): flax's `lecun_normal`
@@ -433,14 +499,38 @@ def load_model(path: str, cfg: ModelConfig,
                            device)
 
 
+def _can_serve(net: PolicyValueNet) -> bool:
+    """Whether a copy can take the serving path: every parameter frozen, no
+    mesh attribute set, channels a multiple of 8."""
+    if any(p.requires_grad for p in net.parameters()):
+        return False
+    for m in net.modules():
+        if getattr(m, "tp", None) is not None or (
+                isinstance(m, BatchNorm)
+                and (m.sync is not None or m.channels is not None)):
+            return False
+    return net.cfg.dim % 8 == 0
+
+
 def serving_copy(net: PolicyValueNet) -> PolicyValueNet:
     """A frozen copy of `net` for inference whose convolutions hold their
     weights in the compute dtype.  Later updates of `net` do not reach it,
-    as a jitted function keeps the parameters it was given."""
+    as a jitted function keeps the parameters it was given.  Where it can
+    (`_can_serve`), the copy serves through `PolicyValueNet.serve`: it holds
+    each trunk BN's multiplier and, on the card, its conv weights in
+    channels_last."""
     frozen = copy.deepcopy(net).requires_grad_(False)
-    for m in frozen.modules():
-        if isinstance(m, Conv):
-            m.to(m.dtype)
+    frozen.serving_muls = None
+    convs = [m for m in frozen.modules() if isinstance(m, Conv)]
+    for m in convs:
+        m.to(m.dtype)
+    if not _can_serve(frozen):
+        return frozen
+    frozen.serving_muls = [torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
+                           for bn in frozen.trunk_bns()]
+    if frozen.init_conv.weight.is_cuda:
+        for m in convs:
+            m.to(memory_format=torch.channels_last)
     return frozen
 
 

@@ -133,6 +133,36 @@ def test_both_designs_match_plain_versions_on_edge_boards(dev, size, B):
                     (fn.__name__, kind)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C", [8, 128, 256, 1024])
+def test_net_epilogue_matches_plain_version(dev, C, dtype):
+    """The trunk epilogue kernel bit for bit equal to its plain version,
+    with and without the conv bias and the skip, at batch sizes that leave
+    the last block's rows partly empty; NaN and infinities included."""
+    from elf_tpu_torch.models import epilogue as epi
+
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[dtype]
+    g = torch.Generator(device=dev).manual_seed(C)
+    mean = torch.randn(C, generator=g, device=dev) * 0.5
+    mul = torch.rand(C, generator=g, device=dev) * 2
+    bias = torch.randn(C, generator=g, device=dev) * 0.3
+    b = (torch.randn(C, generator=g, device=dev) * 0.2).to(dtype)
+    for B, hw in ((1, 19), (3, 13), (5, 7)):
+        shape = (B, C, hw, hw)
+        v = (torch.randn(shape, generator=g, device=dev) * 1.5).to(dtype)
+        v.view(-1)[:3] = torch.tensor([float("nan"), float("inf"),
+                                       -float("inf")], dtype=dtype)
+        v = v.contiguous(memory_format=torch.channels_last)
+        x = torch.relu(torch.randn(shape, generator=g, device=dev)).to(
+            dtype).contiguous(memory_format=torch.channels_last)
+        for skip in (None, x):
+            for cb in (None, b):
+                got = epi.epilogue_cuda(v, mean, mul, bias, skip, cb)
+                want = epi.epilogue_ref(v, mean, mul, bias, skip, cb)
+                assert got.is_contiguous(memory_format=torch.channels_last)
+                assert torch.equal(got.view(bits), want.view(bits))
+
+
 def test_step_core_on_card_matches_cpu(dev):
     """Random legal games: the engine on the card (kernels) and on the CPU
     (plain versions) agree on every field."""
