@@ -29,6 +29,31 @@ Phases:
      at 19x19 B = 2048 and 13x13 B = 1536 by graph replay beside its byte
      bound (at least 60 % of it at B = 2048), its host cost and the plain
      version's time, and the serving forward against the modules';
+ 3c. nbt: KataGo's b18c384nbt (`elf_tpu_torch/models/nbt.py`) at its
+     published widths, seeded weights, each norm's running statistics
+     set to its batch moments over 256 mid-game positions: its epilogue
+     kernels (`csrc/nbt_epilogue.cu`) against their plain versions, bit
+     for bit, at every epilogue of the serving forward (each mode: norm
+     and activation, with the residual add, with the pooled row bias,
+     the pooling and the value pooling; C = 384, 192, 128, 64 and the
+     heads' 32) at 19x19 B = 1, 32 and 2048; the serving forward bit for
+     bit equal to the serving copy's own modules' forward (the same bf16
+     channels_last weights), and against the modules of the fp32-master
+     net (weights cast at each call) the first convolution at which the
+     two part, which must be a convolution's output on equal inputs (B =
+     1, 32); its counters (118 epilogues and 8 pools a forward) and
+     launches (110 nbt_normact, 8 nbt_pool) and no cuDNN layout
+     transpose in its trace; each mode timed at B = 2048 by graph replay
+     beside its byte bound (70 % of it asked: a norm-act mode below
+     fails; a pool, which mish's instructions hold under about 79 %, is
+     logged as a MISS and kept in the result), its host cost and the
+     plain version's time, and the serving forward against the modules'.
+ 4b. nbt slice (after the slice): the same net drives SelfplayActor
+     through `eval_fn_builder` as the slice does, with the launch counts
+     set to 0 just before; nbt_normact must launch 110 times and nbt_pool
+     8 times a forward of that run, the ResNet's kernel never, and every
+     move is replayed on the host.  `python3 chip_smoke.py --only nbt`
+     runs phases 1, 3c and 4b alone and prints their kernels line;
   4. slice: the 19x19 20-block 256-channel net with the committed weights
      (runs/prove19/export-best.bin) drives SelfplayActor (B = 32, 64
      rollouts, 8 per batch, Dirichlet noise) for 6 moves, with the launch
@@ -216,6 +241,7 @@ chiprun_out/tools/.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import re
 import subprocess
@@ -713,6 +739,390 @@ def epilogue_phase(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the nested-bottleneck net's epilogue kernels
+# ---------------------------------------------------------------------------
+
+NBT_SHAPES = ((1, 120), (32, 120), (2048, 120))      # (B, plies)
+NBT_CALIBRATE = 256
+NBT_FLOOR = 0.7             # each mode's share of its byte bound at B = 2048
+
+
+def nbt_calibrated_net():
+    """b18c384nbt at 19x19 with seeded weights, each norm's running
+    statistics set to the batch moments of its input over mid-game
+    positions (forward pre-hooks on one module forward)."""
+    from elf_tpu_torch.models import nbt
+    from elf_tpu_torch.models.resnet import BatchNorm
+
+    net = nbt.build_model(nbt.NbtConfig(), "cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    hooks = []
+
+    def set_moments(bn, inputs):
+        x = inputs[0].float()
+        bn.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+        bn.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.copy_(1 + 0.1 * torch.randn(m.weight.shape,
+                                                     generator=g,
+                                                     device="cuda"))
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=g,
+                                               device="cuda"))
+                hooks.append(m.register_forward_pre_hook(set_moments))
+        net(midgame_features(NBT_CALIBRATE, 19, 120, seed=7))
+    for h in hooks:
+        h.remove()
+    return net
+
+
+def nbt_mode(call: str, args: dict) -> str:
+    if call == "pool":
+        return f"pool {args['kind']}"
+    if args.get("skip") is not None:
+        return "skip"
+    return "row" if args.get("rowbias") is not None else "normact"
+
+
+def nbt_bytes(call: str, args: dict) -> int:
+    """Each input read once, each output written once."""
+    v = args["v"]
+    n, C = v.numel(), v.shape[1]
+    e = v.element_size()
+    consts = 3 * 4 * C
+    if call == "pool":
+        return n * e + v.shape[0] * 3 * C * 4 + consts
+    if args.get("skip") is not None:
+        return 4 * n * e + consts
+    row = 0 if args.get("rowbias") is None else args["rowbias"].numel() * 4
+    return 2 * n * e + row + consts
+
+
+def nbt_convs(net, x) -> list:
+    """Each convolution of one forward of `net` on x, in call order:
+    (module name, input, output)."""
+    from elf_tpu_torch.models import nbt
+
+    rec = []
+    hooks = [m.register_forward_hook(
+        lambda m, i, o, name=name: rec.append((name, i[0], o)))
+        for name, m in net.named_modules() if isinstance(m, nbt.Conv)]
+    try:
+        with torch.no_grad():
+            net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return rec
+
+
+def nbt_first_divergence(a, b, x) -> dict:
+    """Where forwards of two copies of one net on x first give other bits:
+    the first convolution (in a's call order) whose input ("input": an
+    epilogue, a pool or a cast before it) or, given equal inputs, whose
+    output ("output": the convolution itself) differs; None where all
+    agree."""
+    ra, rb = nbt_convs(a, x), nbt_convs(b, x)
+    by_name = {name: (i, o) for name, i, o in rb}
+    for k, (name, i, o) in enumerate(ra):
+        ib, ob = by_name[name]
+        if not torch.equal(i, ib):
+            return dict(conv=k, name=name, at="input")
+        if not torch.equal(o, ob):
+            return dict(conv=k, name=name, at="output",
+                        max_abs=float((o.float() - ob.float()).abs().max()))
+    return None
+
+
+def nbt_phase(card: str) -> dict:
+    """The nbt net's epilogue kernels against their plain versions at
+    every epilogue of its serving forward; the serving forward against
+    the modules'; each mode timed by graph replay beside its byte bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from elf_tpu_torch import _build, profiling
+    from elf_tpu_torch.models import epilogue as epi
+    from elf_tpu_torch.models import nbt
+    from elf_tpu_torch.models.resnet import serving_copy
+
+    t0 = time.perf_counter()
+    path, text = _build.build("nbt_epilogue")
+    log(f"nbt: build {path.name} in {time.perf_counter() - t0:.1f} s")
+    for line in text.splitlines():
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "smem")):
+            log(f"nbt: build: {line.strip()}")
+    net = nbt_calibrated_net()
+    frozen = serving_copy(net)
+    today = copy.deepcopy(net).requires_grad_(False)
+    # the serving copy's own modules: its bf16 channels_last weights and
+    # the modules' forward, no epilogue
+    modules = copy.deepcopy(frozen)
+    modules.serves = False
+    exact = nbt.NestedBottleneckNet(
+        dataclasses.replace(net.cfg, use_bf16=False)).cuda()
+    exact.load_state_dict(net.state_dict())
+    exact.requires_grad_(False)
+    if not frozen.serves:
+        fail("nbt: the serving copy has no serving path")
+    pairs = {"normact": (epi.normact_cuda, epi.normact_ref),
+             "pool": (epi.pool_cuda, epi.pool_ref)}
+    checks, forward, timed = {}, {}, {}
+
+    def checker(call, B):
+        kernel, plain = pairs[call]
+
+        def run(*a, **kw):
+            names = (["v", "mean", "mul", "bias", "act"]
+                     + (["kind"] if call == "pool" else ["skip", "rowbias"]))
+            args = dict(zip(names, a), **kw)
+            got = kernel(**args)
+            want = plain(**args)
+            torch.cuda.synchronize()
+            both = zip(got, want) if isinstance(got, tuple) else [
+                (got, want)]
+            for x, y in both:
+                bits = torch.int16 if x.dtype == torch.bfloat16 else \
+                    torch.int32
+                if x.dtype != y.dtype or x.shape != y.shape or not \
+                        torch.equal(x.view(bits), y.view(bits)):
+                    fail(f"nbt: the {nbt_mode(call, args)} kernel differs "
+                         f"from its plain version at B {B}, C "
+                         f"{args['v'].shape[1]}")
+                if x.dim() == 4 and not x.is_contiguous(
+                        memory_format=torch.channels_last):
+                    fail("nbt: a kernel output is not channels_last")
+            key = f"{nbt_mode(call, args)} C={args['v'].shape[1]}"
+            checks.setdefault(f"B={B}", {}).setdefault(key, 0)
+            checks[f"B={B}"][key] += 1
+            if B == NBT_SHAPES[-1][0] and key not in timed:
+                timed[key] = (call, args)
+            return want
+
+        return run
+
+    for B, plies in NBT_SHAPES:
+        x = midgame_features(B, 19, plies, seed=B)
+        saved = nbt.normact, nbt.pool
+        nbt.normact, nbt.pool = checker("normact", B), checker("pool", B)
+        try:
+            with torch.no_grad():
+                frozen.serve(x)
+        finally:
+            nbt.normact, nbt.pool = saved
+        with torch.no_grad():
+            new = frozen(x)
+            own = modules(x)
+            old = today(x)
+            again = today(x)
+            fp32 = exact(x)
+        torch.cuda.synchronize()
+
+        def gap(a, b):
+            return [float((u - w).abs().max()) for u, w in zip(a, b)]
+
+        def bitwise(a, b):
+            return all(torch.equal(u, w) for u, w in zip(a, b))
+
+        n = sum(checks[f"B={B}"].values())
+        if n != 118:
+            fail(f"nbt: {n} epilogues in a forward at B {B}, not 118")
+        # the serving path is the modules' arithmetic: on the same bf16
+        # channels_last weights the two forwards agree bit for bit
+        if not bitwise(new, own):
+            fail(f"nbt: the serving forward at B {B} differs from its own "
+                 f"modules' by {gap(new, own)}; first divergence "
+                 f"{nbt_first_divergence(modules, frozen, x[:32])}")
+        # against the modules of the fp32-master net (weights cast to bf16
+        # at each call, NCHW): where they part, a convolution given equal
+        # inputs must be the first to give other bits
+        where = None
+        if B <= 32 and not bitwise(new, old):
+            where = nbt_first_divergence(today, frozen, x)
+            if not where or where["at"] != "output":
+                fail(f"nbt: the serving forward at B {B} parts from the "
+                     f"modules' other than at a convolution: {where}")
+        err = gap(new, old)
+        forward[f"B={B}"] = dict(
+            log_pi_max_abs=err[0], value_max_abs=err[1],
+            bitwise=bitwise(new, old), bitwise_own_modules=True,
+            modules_repeat_bitwise=bitwise(old, again),
+            first_divergence=where, serving_to_fp32=gap(new, fp32),
+            modules_to_fp32=gap(old, fp32))
+        log(f"nbt: B {B}: every kernel equal to its plain version bit for "
+            f"bit ({checks[f'B={B}']}); serving forward bit for bit equal "
+            f"to the serving copy's modules'; against the fp32-master "
+            f"net's modules: log_pi {err[0]:.3g}, value {err[1]:.3g} max "
+            f"abs ({'bit for bit' if bitwise(new, old) else 'not bit for bit'}"
+            f"; first divergence {where}; those modules twice "
+            f"{'bit for bit' if bitwise(old, again) else 'not bit for bit'})"
+            f"; against the fp32 forward: serving {gap(new, fp32)}, modules "
+            f"{gap(old, fp32)}")
+
+    B = NBT_SHAPES[-1][0]
+    x = midgame_features(B, 19, 120, seed=B)
+    profiling.reset()
+    launched = dict(epi.launches)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        frozen(x)
+        torch.cuda.synchronize()
+    counts = profiling.counters()
+    profiling.reset()
+    ran = {k: epi.launches[k] - launched[k] for k in launched}
+    if counts != {"net.forwards": 1, "net.epilogues": 118, "net.gpools": 8} \
+            or ran != {"net_epilogue": 0, "nbt_normact": 110, "nbt_pool": 8}:
+        fail(f"nbt: counters {counts}, kernel launches {ran} for one "
+             "forward")
+    kernels_ms = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0)
+        if t and e.key.split(":")[0] not in ("aten", "cudaLaunchKernel"):
+            kernels_ms[e.key[:90]] = t / 1e3
+    top = sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:12]
+    if any("nchwToNhwc" in k or "nhwcToNchw" in k for k in kernels_ms):
+        fail("nbt: a cuDNN layout transpose in the serving forward")
+    log(f"nbt: B {B} serving forward under the profiler, top device ms: "
+        + "; ".join(f"{k} {v:.3f}" for k, v in top))
+
+    timings = {}
+    for key, (call, args) in sorted(timed.items()):
+        kernel, plain = pairs[call]
+        nbytes = nbt_bytes(call, args)
+        ms = [graph_ms(lambda: kernel(**args), 50) for _ in range(2)]
+        t = dict(bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                 ms=float(np.mean(ms)), ms_turns=ms,
+                 profiler_ms=profiler_ms(
+                     lambda: kernel(**args),
+                     "nbt_pool_kernel" if call == "pool"
+                     else "nbt_normact_kernel", 50),
+                 host_ms=host_ms(lambda: kernel(**args), 200),
+                 plain_ms=cuda_time_ms(lambda: plain(**args), 3))
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        timings[key] = t
+        log(f"nbt: B {B} {key}: device {t['ms']:.6f} ms/launch (graph "
+            f"replay; turns {', '.join(f'{v:.6f}' for v in ms)}), bound "
+            f"{t['bound_ms']:.6f} ms ({nbytes} bytes; "
+            f"{100 * t['bound_share']:.1f} % of it), host "
+            f"{t['host_ms']:.6f} ms/call, plain {t['plain_ms']:.4f} ms")
+    with torch.no_grad():
+        fwd = {"change": [], "today": []}
+        for which in ("today", "change", "change", "today"):
+            m = frozen if which == "change" else today
+            fwd[which].append(cuda_time_ms(lambda: m(x), 3))
+    timings["forward"] = fwd
+    log(f"nbt: B {B}: the serving forward {np.mean(fwd['change']):.3f} ms, "
+        f"the modules' {np.mean(fwd['today']):.3f} ms (CUDA events, in "
+        f"turns); peak memory {torch.cuda.max_memory_allocated()} bytes")
+    # 70 % of the byte bound for every mode.  A pool's mish costs about 25
+    # instructions an element on 2 bytes read, so the card's issue rate
+    # holds it under about 79 % of its byte bound (csrc/nbt_epilogue.cu):
+    # a pool below 70 % is kept as a miss, a norm-act mode fails
+    misses = {k: t["bound_share"] for k, t in timings.items()
+              if k != "forward" and t["bound_share"] < NBT_FLOOR}
+    for key, share in sorted(misses.items()):
+        log(f"nbt: MISS: {key} at {100 * share:.1f} % of its byte bound at "
+            f"B {B}, below the {100 * NBT_FLOOR:.0f} % asked")
+    if any(not key.startswith("pool") for key in misses):
+        fail(f"nbt: norm-act modes below {100 * NBT_FLOOR:.0f} % of their "
+             f"byte bound: {misses}")
+    return {"checks": checks, "forward": forward, "timings": timings,
+            "top_device_ms": top, "misses": misses}
+
+
+def nbt_slice_phase(card: str) -> dict:
+    """Phase 3c's calibrated b18c384nbt drives SelfplayActor through
+    `eval_fn_builder` (the slice's B, rollouts and moves): the nbt kernels'
+    launches of this run alone against its forwards (110 normact and 8
+    pool launches each), the moves replayed on the host."""
+    from elf_tpu_torch.env.go import kernels
+    from elf_tpu_torch.models import epilogue
+    from elf_tpu_torch.models.resnet import eval_fn_builder
+    from elf_tpu_torch.search.mcts import MCTSConfig
+    from elf_tpu_torch.selfplay.actor import ActorConfig, SelfplayActor
+
+    net = nbt_calibrated_net()
+    forwards = [0]
+
+    def builder(params, batch_stats):
+        fn = eval_fn_builder(params, batch_stats)
+
+        def eval_fn(feats, to_play):
+            forwards[0] += 1
+            return fn(feats, to_play)
+
+        return eval_fn
+
+    actor = SelfplayActor(
+        ActorConfig(board_size=19, batch=SLICE_B, never_resign_prob=1.0),
+        MCTSConfig(num_rollouts=SLICE_ROLLOUTS,
+                   rollouts_per_batch=SLICE_PER_BATCH, root_epsilon=0.25),
+        builder, seed=0, device="cuda",
+    )
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    epilogue.launches.update(dict.fromkeys(epilogue.launches, 0))
+    move_s = []
+    for _ in range(SLICE_MOVES):
+        t0 = time.perf_counter()
+        records = actor.play_moves(net, None, 1)
+        torch.cuda.synchronize()
+        move_s.append(time.perf_counter() - t0)
+        if records:
+            fail("nbt slice: a game ended within the first moves")
+    launches = dict(kernels.launch_counts(), **epilogue.launches)
+    n = forwards[0]
+    want = {"net_epilogue": 0, "nbt_normact": 110 * n, "nbt_pool": 8 * n}
+    if n <= 0 or any(launches[k] != v for k, v in want.items()):
+        fail(f"nbt slice: launches {launches} for {n} forwards, expected "
+             f"{want}")
+    if launches["step_analysis"] != (SLICE_ROLLOUTS + 1) * SLICE_MOVES \
+            or launches["analyze_libs"] != SLICE_MOVES:
+        fail(f"nbt slice: liberty-kernel launches {launches}")
+    stones = replay_is_legal(actor.moves, 19)
+    if not torch.equal(stones, actor.state.core.stones):
+        fail("nbt slice: replayed boards differ from the actor's boards")
+    steady = move_s[1:]
+    mps = len(steady) / sum(steady)
+    out = dict(card=card, boards=SLICE_B, rollouts=SLICE_ROLLOUTS,
+               rollouts_per_batch=SLICE_PER_BATCH, moves=SLICE_MOVES,
+               forwards=n, first_move_s=move_s[0], steady_move_s=steady,
+               rollouts_per_s=mps * SLICE_B * SLICE_ROLLOUTS,
+               launches=launches)
+    log(f"nbt slice: 19x19 b18c384nbt B {SLICE_B}, {SLICE_ROLLOUTS} "
+        f"rollouts, {SLICE_MOVES} moves: {n} forwards, launches {launches} "
+        f"(110 nbt_normact and 8 nbt_pool a forward); first move "
+        f"{move_s[0]:.3f} s, then {out['rollouts_per_s']:.1f} rollouts/s "
+        f"on {card}")
+    return out
+
+
+def nbt_kernel_rows(phase: dict, played: dict) -> list:
+    """The kernels line's rows of the two nbt kernels: launches from the
+    nbt slice, times at B = 2048 from phase 3c (the widest layer of each:
+    normact at C = 192 with mish, the trunk's pool at C = 64)."""
+    t = phase["timings"]
+    rows = []
+    for name, key, modes in (
+            ("nbt_normact", "normact C=192", ("normact", "skip", "row")),
+            ("nbt_pool", "pool gpool C=64", ("pool",))):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "elf_tpu_torch/csrc/nbt_epilogue.cu", "replaces": None,
+            "launches": played["launches"][name], "max_abs_err": 0,
+            "ms": t[key]["ms"], "plain_ms": t[key]["plain_ms"],
+            "bound_ms": t[key]["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "shape": f"19x19 {key} B=2048, mish",
+            "host_ms": t[key]["host_ms"],
+            "by_shape": {k: v for k, v in t.items()
+                         if k.startswith(modes)},
+        })
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the self-play slice at full width
 # ---------------------------------------------------------------------------
 
@@ -757,7 +1167,7 @@ def slice_phase(card: str):
     )
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    epilogue.launches = 0
+    epilogue.launches.update(dict.fromkeys(epilogue.launches, 0))
     move_s = []
     for _ in range(SLICE_MOVES):
         t0 = time.perf_counter()
@@ -768,9 +1178,9 @@ def slice_phase(card: str):
             fail("a game ended within the first moves")
     launches = kernels.launch_counts()
     # every serving forward: 41 trunk epilogues (the first layer, 2 a block)
-    launches["net_epilogue"] = epilogue.launches
-    if epilogue.launches <= 0 or epilogue.launches % (2 * cfg.num_block + 1):
-        fail(f"net_epilogue: {epilogue.launches} launches in the slice")
+    n = launches["net_epilogue"] = epilogue.launches["net_epilogue"]
+    if n <= 0 or n % (2 * cfg.num_block + 1):
+        fail(f"net_epilogue: {n} launches in the slice")
 
     per_move = {"step_analysis": SLICE_ROLLOUTS + 1, "analyze_libs": 1}
     for name, n in per_move.items():
@@ -3945,6 +4355,20 @@ def main() -> int:
     log(f"card: {card} | torch {torch.__version__} | CUDA "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
+    if sys.argv[1:] == ["--only", "nbt"]:
+        result = {"card": card, "kind": kind, "nbt": nbt_phase(card),
+                  "nbt_slice": nbt_slice_phase(card)}
+        rows = nbt_kernel_rows(result["nbt"], result["nbt_slice"])
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_nbt.json").write_text(
+            json.dumps(result, indent=1))
+        print(card, flush=True)
+        print(json.dumps({"kernels": rows}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     for name in ("go_libs", "net_epilogue"):     # the CUDA kernels
         t0 = time.perf_counter()
         path, text = _build.build(name)
@@ -3961,7 +4385,9 @@ def main() -> int:
     result = {"card": card, "kind": kind}
     result["kernels"] = kernel_phase(np.random.default_rng(0))
     result["epilogue"] = epilogue_phase(card)
+    result["nbt"] = nbt_phase(card)
     result["slice"], net = slice_phase(card)
+    result["nbt_slice"] = nbt_slice_phase(card)
     result["records"] = record_phase()
     result["train"] = train_phase(card)
     result["fleet"] = fleet_phase(card)
@@ -4025,6 +4451,7 @@ def main() -> int:
         "by_shape": {k_: v for k_, v in e.items()
                      if not k_.endswith("forward")},
     })
+    rows.extend(nbt_kernel_rows(result["nbt"], result["nbt_slice"]))
     k["timings"] = {f"{n} {boards} B={B}": v
                     for (n, boards, B), v in k["timings"].items()}
     out_dir = ROOT / "chiprun_out"

@@ -12,6 +12,10 @@ A file holds `params`, `batch_stats`, `opt_state` (left out of a
 params-only export) and `step`, in the trees the JAX trainer writes: the
 flax layouts of `models/resnet.py` and the optax chain's state dict that
 `training/trainer.py` `Optimizer` keeps.
+
+A net with no JAX twin (`models/nbt.py`) is saved as a torch state dict
+instead (`save_state_dict`, `load_state_dict`): CPU tensors under the
+net's own names, read back without unpickling any code.
 """
 
 from __future__ import annotations
@@ -359,6 +363,20 @@ def load_checkpoint(path: str, template=None):
             _restore_opt(state.net.cfg, state.opt_state, payload["opt_state"])
     state.step = int(payload["step"])
     return state
+
+
+def save_state_dict(path: str, net: torch.nn.Module) -> str:
+    """Write `net`'s state dict (parameters and BN statistics, as CPU
+    tensors) to `path`, atomically."""
+    state = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+    torch.save(state, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    return path
+
+
+def load_state_dict(path: str) -> dict:
+    """The state dict `save_state_dict` wrote (CPU tensors)."""
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def version_from_path(path: str) -> int:

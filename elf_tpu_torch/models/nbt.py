@@ -1,0 +1,360 @@
+"""KataGo's nested-bottleneck residual net (`b18c384nbt`: KataGo's
+`python/katago/train/modelconfigs.py` and `docs/KataGoMethods.md`; global
+pooling: Wu, arXiv:1902.10565, section 3 and appendix), for serving.
+
+  input  [B, N, N, C] float32 NHWC, as `PolicyValueNet` takes it
+  trunk  a `input_kernel` x `input_kernel` convolution to `trunk_channels`,
+         then `num_blocks` nested blocks on the raw trunk stream x:
+           r = NAC(1x1, trunk -> mid)(x), NAC(c)(h) = conv_c(act(norm(h)))
+           `inner_blocks` inner blocks, each r <- r + NAC(3x3)(NAC(3x3)(r))
+           x <- x + NAC(1x1, mid -> trunk)(r)
+         and in the blocks of `gpool_blocks` (1-based, as KataGo's block
+         list counts them) the first inner block pools the board:
+           a = act(norm(r)), t = conv3x3(a) (mid - gpool channels),
+           g = act(norm_g(conv3x3(a))) (gpool channels),
+           t <- t + W_g pool(g) over the board, r <- r + conv3x3(act(norm(t)))
+         then act(norm(x))
+  policy 1x1 convolutions to P (p1) and G (g1); pool(act(norm(G))) through
+         a dense layer added to P per channel; act(norm(P)); a 1x1
+         convolution to the 361 point logits; the pass logit a dense layer
+         of the pooled G; log-softmax over N*N + 1
+  value  1x1 convolution to v1, act(norm), value pooling, dense to v2, act,
+         dense to 3 logits (win, loss, no result); the value is
+         P(win) - P(loss)
+
+`pool` is KataGo's (`epilogue.board_pool`): [mean, mean (sqrt(A) - 14) /
+10, max] over the A = N*N points, and for the value head [mean, mean
+(sqrt(A) - 14) / 10, mean ((sqrt(A) - 14)^2 / 100 - 0.1)].  `act` is
+`activation`, mish (KataGo's form, `epilogue.mish`) or relu.
+
+Numerics, as `PolicyValueNet`'s: fp32 master weights; every convolution
+without bias in the compute dtype (bf16 when `use_bf16`), as are the trunk
+stream, the inner stream and each convolution's input; every norm, the
+pooling and the dense layers in fp32.  The norms are the port's
+`BatchNorm` with its running statistics: at inference a per-channel
+affine, as KataGo's exported nets reduce theirs to a scale and a bias.
+The net has no training forward (`net(x, train=True)` raises).
+
+The serving path (`NestedBottleneckNet.serve`).  A serving copy
+(`resnet.serving_copy`) whose channels are multiples of 8 holds each
+norm's `rsqrt(running_var + eps) * weight` (`serving_mul`).  On a CUDA
+input it keeps every activation NHWC (`torch.channels_last`) from the
+first convolution to the heads, and follows each convolution but the
+policy's last with one epilogue (`models/epilogue.py`): the next layer's
+norm and activation, with the residual add before it (`normact` with a
+skip, which writes the raw sum too), the pooled term before it (with a
+row bias), or the board's pooling after it (`pool`, which writes only the
+pooled values).  Those are the modules' roundings and order of operations,
+so it gives the bits of the copy's own modules (the same bf16
+channels_last weights); the modules of a net with fp32 weights, cast at
+each call, may get another cuDNN algorithm for a 1x1 convolution.  A
+forward at `gpool_blocks` of 6 in 18 blocks: 118 epilogues, 8 of them
+pools (`net.epilogues`, `net.gpools`), counted with `net.forwards`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from elf_tpu_torch import profiling
+from elf_tpu_torch.device import DeviceLike, resolve_device
+from elf_tpu_torch.models.epilogue import (activation, board_pool, normact,
+                                           pool)
+from elf_tpu_torch.models.resnet import BN_EPS, BatchNorm, init_weights
+
+
+@dataclasses.dataclass(frozen=True)
+class NbtConfig:
+    """Every width of the net; the defaults are `b18c384nbt`'s trunk, mid
+    and pooling widths and depth at 19x19 on the port's 18 AGZ planes.
+    The head widths (arXiv:1902.10565's appendix), the pooled blocks,
+    mish and the input convolution are assumed, not read from KataGo's
+    own entry for the net."""
+
+    board_size: int = 19
+    num_planes: int = 18
+    trunk_channels: int = 384
+    mid_channels: int = 192
+    gpool_channels: int = 64
+    num_blocks: int = 18
+    inner_blocks: int = 2
+    gpool_blocks: Tuple[int, ...] = (3, 6, 9, 12, 15, 18)
+    input_kernel: int = 5
+    p1_channels: int = 32
+    g1_channels: int = 32
+    v1_channels: int = 32
+    v2_size: int = 64
+    activation: str = "mish"
+    use_bf16: bool = True
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.use_bf16 else torch.float32
+
+
+class Conv(nn.Module):
+    """k x k "same" convolution without bias, fp32 master weight, computed
+    in `dtype`."""
+
+    def __init__(self, cin: int, cout: int, k: int, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.padding = k // 2
+        self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight.to(self.dtype), None,
+                        padding=self.padding)
+
+
+def _k(norm: BatchNorm) -> tuple:
+    """A serving copy's epilogue constants of `norm`: mean, mul, bias."""
+    return norm.running_mean, norm.serving_mul, norm.bias
+
+
+class NormActConv(nn.Module):
+    """conv(act(norm(h))): the norm belongs to the convolution it feeds."""
+
+    def __init__(self, cin: int, cout: int, k: int, dtype: torch.dtype):
+        super().__init__()
+        self.norm = BatchNorm(cin)
+        self.conv = Conv(cin, cout, k, dtype)
+
+    def forward(self, h: torch.Tensor, act) -> torch.Tensor:
+        return self.conv(act(self.norm(h)).to(self.conv.dtype))
+
+
+class ResBlock(nn.Module):
+    """r + NAC(3x3)(NAC(3x3)(r)), pre-activation."""
+
+    def __init__(self, c: int, dtype: torch.dtype):
+        super().__init__()
+        self.normactconv1 = NormActConv(c, c, 3, dtype)
+        self.normactconv2 = NormActConv(c, c, 3, dtype)
+
+    @property
+    def first_norm(self) -> BatchNorm:
+        return self.normactconv1.norm
+
+    def forward(self, r: torch.Tensor, act) -> torch.Tensor:
+        return r + self.normactconv2(self.normactconv1(r, act), act)
+
+    def serve(self, r, a, after: BatchNorm, act: str):
+        """(r, act(after(r))) of the block, from a = act(first_norm(r))."""
+        u = normact(self.normactconv1.conv(a), *_k(self.normactconv2.norm),
+                    act)
+        return normact(self.normactconv2.conv(u), *_k(after), act, skip=r)
+
+
+class GPoolResBlock(nn.Module):
+    """KataGo's global-pooling residual block (pre-activation)."""
+
+    def __init__(self, c: int, c_gpool: int, dtype: torch.dtype):
+        super().__init__()
+        self.norm1 = BatchNorm(c)
+        self.conv1r = Conv(c, c - c_gpool, 3, dtype)
+        self.conv1g = Conv(c, c_gpool, 3, dtype)
+        self.normg = BatchNorm(c_gpool)
+        self.linear_g = nn.Linear(3 * c_gpool, c - c_gpool, bias=False)
+        self.norm2 = BatchNorm(c - c_gpool)
+        self.conv2 = Conv(c - c_gpool, c, 3, dtype)
+
+    @property
+    def first_norm(self) -> BatchNorm:
+        return self.norm1
+
+    def forward(self, r: torch.Tensor, act) -> torch.Tensor:
+        dt = self.conv2.dtype
+        a = act(self.norm1(r)).to(dt)
+        g = board_pool(act(self.normg(self.conv1g(a))), "gpool")
+        t = self.conv1r(a).float() + self.linear_g(g)[:, :, None, None]
+        return r + self.conv2(act(self.norm2(t)).to(dt))
+
+    def serve(self, r, a, after: BatchNorm, act: str):
+        g = pool(self.conv1g(a), *_k(self.normg), act, "gpool")
+        u = normact(self.conv1r(a), *_k(self.norm2), act,
+                    rowbias=self.linear_g(g))
+        return normact(self.conv2(u), *_k(after), act, skip=r)
+
+
+class NestedBlock(nn.Module):
+    """x + NAC(1x1)(inner blocks(NAC(1x1)(x))), KataGo's
+    NestedBottleneckResBlock."""
+
+    def __init__(self, cfg: NbtConfig, pooled: bool):
+        super().__init__()
+        dt, mid = cfg.compute_dtype, cfg.mid_channels
+        self.normactconvp = NormActConv(cfg.trunk_channels, mid, 1, dt)
+        self.blockstack = nn.ModuleList([
+            GPoolResBlock(mid, cfg.gpool_channels, dt) if pooled and j == 0
+            else ResBlock(mid, dt) for j in range(cfg.inner_blocks)])
+        self.normactconvq = NormActConv(mid, cfg.trunk_channels, 1, dt)
+
+    def forward(self, x: torch.Tensor, act) -> torch.Tensor:
+        r = self.normactconvp(x, act)
+        for blk in self.blockstack:
+            r = blk(r, act)
+        return x + self.normactconvq(r, act)
+
+    def serve(self, x, a, after: BatchNorm, act: str):
+        """(x, act(after(x))) of the block, from a = act(norm_p(x))."""
+        r = self.normactconvp.conv(a)
+        stack = list(self.blockstack)
+        a = normact(r, *_k(stack[0].first_norm), act)
+        nexts = [blk.first_norm for blk in stack[1:]]
+        for blk, nxt in zip(stack, nexts + [self.normactconvq.norm]):
+            r, a = blk.serve(r, a, nxt, act)
+        return normact(self.normactconvq.conv(a), *_k(after), act, skip=x)
+
+
+class PolicyHead(nn.Module):
+    def __init__(self, cfg: NbtConfig):
+        super().__init__()
+        dt, c, p1, g1 = (cfg.compute_dtype, cfg.trunk_channels,
+                         cfg.p1_channels, cfg.g1_channels)
+        self.conv1p = Conv(c, p1, 1, dt)
+        self.conv1g = Conv(c, g1, 1, dt)
+        self.normg = BatchNorm(g1)
+        self.linear_g = nn.Linear(3 * g1, p1, bias=False)
+        self.norm2 = BatchNorm(p1)
+        self.conv2p = Conv(p1, 1, 1, dt)
+        self.linear_pass = nn.Linear(3 * g1, 1)
+
+    def forward(self, h: torch.Tensor, act) -> torch.Tensor:
+        g = board_pool(act(self.normg(self.conv1g(h))), "gpool")
+        p = self.conv1p(h).float() + self.linear_g(g)[:, :, None, None]
+        return self._log_pi(act(self.norm2(p)).to(h.dtype), g)
+
+    def serve(self, h: torch.Tensor, act: str) -> torch.Tensor:
+        g = pool(self.conv1g(h), *_k(self.normg), act, "gpool")
+        p = normact(self.conv1p(h), *_k(self.norm2), act,
+                    rowbias=self.linear_g(g))
+        return self._log_pi(p, g)
+
+    def _log_pi(self, p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        logits = self.conv2p(p).float().reshape(p.shape[0], -1)
+        return F.log_softmax(torch.cat([logits, self.linear_pass(g)], 1), -1)
+
+
+class ValueHead(nn.Module):
+    def __init__(self, cfg: NbtConfig):
+        super().__init__()
+        v1 = cfg.v1_channels
+        self.conv1 = Conv(cfg.trunk_channels, v1, 1, cfg.compute_dtype)
+        self.norm1 = BatchNorm(v1)
+        self.linear2 = nn.Linear(3 * v1, cfg.v2_size)
+        self.linear3 = nn.Linear(cfg.v2_size, 3)
+
+    def forward(self, h: torch.Tensor, act) -> torch.Tensor:
+        v = board_pool(act(self.norm1(self.conv1(h))), "value")
+        return self._value(v, act)
+
+    def serve(self, h: torch.Tensor, act: str) -> torch.Tensor:
+        v = pool(self.conv1(h), *_k(self.norm1), act, "value")
+        return self._value(v, activation(act))
+
+    def _value(self, v: torch.Tensor, act) -> torch.Tensor:
+        p = torch.softmax(self.linear3(act(self.linear2(v))), -1)
+        return p[:, 0] - p[:, 1]
+
+
+class NestedBottleneckNet(nn.Module):
+    def __init__(self, cfg: NbtConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.conv_spatial = Conv(cfg.num_planes, cfg.trunk_channels,
+                                 cfg.input_kernel, cfg.compute_dtype)
+        self.blocks = nn.ModuleList([
+            NestedBlock(cfg, i + 1 in cfg.gpool_blocks)
+            for i in range(cfg.num_blocks)])
+        self.norm_trunkfinal = BatchNorm(cfg.trunk_channels)
+        self.policy_head = PolicyHead(cfg)
+        self.value_head = ValueHead(cfg)
+        # set by `prepare_serving` where the copy can take `serve`
+        self.serves = False
+
+    def takes_serving_path(self, x: torch.Tensor, train: bool) -> bool:
+        """Whether `forward` runs `serve`: a serving copy that can, a CUDA
+        input."""
+        return not train and x.is_cuda and self.serves
+
+    def forward(self, x: torch.Tensor,
+                train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: [B, N, N, C] float32 -> (log_pi [B, A] f32, value [B] f32),
+        with the norms' running statistics."""
+        if train:
+            raise ValueError("NestedBottleneckNet has no training forward")
+        if self.takes_serving_path(x, train):
+            return self.serve(x)
+        act = activation(self.cfg.activation)
+        dt = self.cfg.compute_dtype
+        h = self.conv_spatial(x.permute(0, 3, 1, 2).to(dt))
+        for blk in self.blocks:
+            h = blk(h, act)
+        h = act(self.norm_trunkfinal(h)).to(dt)
+        return self.policy_head(h, act), self.value_head(h, act)
+
+    def serve(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The serving path of a serving copy: `forward`, each convolution
+        followed by one epilogue; on a CPU input the epilogues are the
+        plain versions."""
+        profiling.count("net.forwards")
+        act = self.cfg.activation
+        h = x.permute(0, 3, 1, 2).to(self.cfg.compute_dtype,
+                                      memory_format=torch.channels_last)
+        trunk = self.conv_spatial(h)
+        a = normact(trunk, *_k(self.blocks[0].normactconvp.norm), act)
+        afters = [blk.normactconvp.norm for blk in self.blocks[1:]]
+        for blk, after in zip(self.blocks, afters + [self.norm_trunkfinal]):
+            trunk, a = blk.serve(trunk, a, after, act)
+        return self.policy_head.serve(a, act), self.value_head.serve(a, act)
+
+    def prepare_serving(self) -> None:
+        """Make this frozen copy a serving copy (`resnet.serving_copy`):
+        convolutions in the compute dtype and, where it can serve (channels
+        multiples of 8), each norm's multiplier and, on the card, the
+        convolutions' weights in channels_last."""
+        convs = [m for m in self.modules() if isinstance(m, Conv)]
+        for m in convs:
+            m.to(m.dtype)
+        cfg = self.cfg
+        widths = (cfg.trunk_channels, cfg.mid_channels, cfg.gpool_channels,
+                  cfg.mid_channels - cfg.gpool_channels, cfg.p1_channels,
+                  cfg.g1_channels, cfg.v1_channels)
+        self.serves = all(c % 8 == 0 for c in widths)
+        if not self.serves:
+            return
+        for bn in self.modules():
+            if isinstance(bn, BatchNorm):
+                bn.serving_mul = torch.rsqrt(bn.running_var + BN_EPS) * \
+                    bn.weight
+        if self.conv_spatial.weight.is_cuda:
+            for m in convs:
+                m.to(memory_format=torch.channels_last)
+
+
+def build_model(cfg: NbtConfig, device: DeviceLike = "cuda",
+                seed: int = 0) -> NestedBottleneckNet:
+    """A NestedBottleneckNet with seeded random weights (`init_weights`:
+    flax's defaults in distribution)."""
+    dev = resolve_device(device)
+    net = NestedBottleneckNet(cfg)
+    init_weights(net, torch.Generator().manual_seed(seed))
+    return net.to(dev)
+
+
+def load_model(path: str, cfg: NbtConfig,
+               device: DeviceLike = "cuda") -> NestedBottleneckNet:
+    """A NestedBottleneckNet from a torch state-dict file
+    (`checkpoint.save_state_dict`); names and shapes must agree."""
+    from elf_tpu_torch.models.checkpoint import load_state_dict
+
+    net = NestedBottleneckNet(cfg)
+    net.load_state_dict(load_state_dict(path))
+    return net.to(resolve_device(device))
+

@@ -6,6 +6,8 @@ Each entry pairs a network with its training loss:
   df_kl     PolicyValueNet + mcts_prediction_loss     (AlphaZero training)
   df_pred   PolicyValueNet + multiple_prediction_loss (supervised moves)
   df_policy PolicyNet      + multiple_prediction_loss (policy-only CNN)
+  kata_nbt  NestedBottleneckNet (KataGo's b18c384nbt, `models/nbt.py`):
+            serving only, it has no learner yet
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 from typing import Callable, Dict, NamedTuple
 
 from elf_tpu_torch.device import DeviceLike
+from elf_tpu_torch.models.nbt import NbtConfig, NestedBottleneckNet
 from elf_tpu_torch.models.policy_net import PolicyNet, PolicyNetConfig
 from elf_tpu_torch.models.resnet import ModelConfig, PolicyValueNet
 from elf_tpu_torch.training.loss import (
@@ -35,6 +38,9 @@ MODELS: Dict[str, ModelFamily] = {
     ),
     "df_policy": ModelFamily(
         PolicyNet, PolicyNetConfig, multiple_prediction_loss, "df"
+    ),
+    "kata_nbt": ModelFamily(
+        NestedBottleneckNet, NbtConfig, mcts_prediction_loss, "agz"
     ),
 }
 
@@ -61,12 +67,18 @@ def make_trainer(name: str, board_size: int, to, use_df_feature: bool = False,
       df_pred -> Trainer + "offline" (supervised MultiplePrediction)
     df_policy (the value-head-less PolicyNet) has no Trainer path and
     raises ValueError, as in the JAX package: build it with
-    `models.policy_net.init_policy_net`."""
+    `models.policy_net.init_policy_net`.  kata_nbt has none yet either and
+    raises ValueError: build it with `models.nbt.build_model` (serving)."""
     fam = get_model_family(name)
-    if fam.model_cls is not PolicyValueNet:
+    if fam.model_cls is PolicyNet:
         raise ValueError(
             f"model family '{name}' ({fam.model_cls.__name__}) has no "
             "value head; use elf_tpu_torch.models.policy_net directly"
+        )
+    if fam.model_cls is not PolicyValueNet:
+        raise ValueError(
+            f"model family '{name}' ({fam.model_cls.__name__}) has no "
+            "learner; it serves only (elf_tpu_torch.models.nbt)"
         )
     feature_set = family_feature_set(name, use_df_feature)
     from elf_tpu_torch.training.trainer import Trainer

@@ -294,6 +294,23 @@ class PolicyValueNet(nn.Module):
         return [self.init_bn] + [bn for blk in self.blocks
                                  for bn in (blk.bn1, blk.bn2)]
 
+    def prepare_serving(self) -> None:
+        """Make this frozen copy a serving copy (`serving_copy`): its
+        convolutions in the compute dtype and, where it can (`_can_serve`),
+        each trunk BN's multiplier and, on the card, its conv weights in
+        channels_last, so that it serves through `serve`."""
+        self.serving_muls = None
+        convs = [m for m in self.modules() if isinstance(m, Conv)]
+        for m in convs:
+            m.to(m.dtype)
+        if not _can_serve(self):
+            return
+        self.serving_muls = [torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
+                             for bn in self.trunk_bns()]
+        if self.init_conv.weight.is_cuda:
+            for m in convs:
+                m.to(memory_format=torch.channels_last)
+
     def serve(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The serving path of a serving copy (`serving_copy`): `forward`
         with the running statistics, each trunk BN (with its ReLU, casts
@@ -512,32 +529,23 @@ def _can_serve(net: PolicyValueNet) -> bool:
     return net.cfg.dim % 8 == 0
 
 
-def serving_copy(net: PolicyValueNet) -> PolicyValueNet:
-    """A frozen copy of `net` for inference whose convolutions hold their
-    weights in the compute dtype.  Later updates of `net` do not reach it,
-    as a jitted function keeps the parameters it was given.  Where it can
-    (`_can_serve`), the copy serves through `PolicyValueNet.serve`: it holds
-    each trunk BN's multiplier and, on the card, its conv weights in
-    channels_last."""
+def serving_copy(net: nn.Module) -> nn.Module:
+    """A frozen copy of `net` (a `PolicyValueNet`, or any net with a
+    `prepare_serving` method, such as `models.nbt.NestedBottleneckNet`) for
+    inference, whose convolutions hold their weights in the compute dtype.
+    Later updates of `net` do not reach it, as a jitted function keeps the
+    parameters it was given.  Where it can, the copy serves through the
+    net's `serve` (`PolicyValueNet.prepare_serving`)."""
     frozen = copy.deepcopy(net).requires_grad_(False)
-    frozen.serving_muls = None
-    convs = [m for m in frozen.modules() if isinstance(m, Conv)]
-    for m in convs:
-        m.to(m.dtype)
-    if not _can_serve(frozen):
-        return frozen
-    frozen.serving_muls = [torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
-                           for bn in frozen.trunk_bns()]
-    if frozen.init_conv.weight.is_cuda:
-        for m in convs:
-            m.to(memory_format=torch.channels_last)
+    frozen.prepare_serving()
     return frozen
 
 
-def eval_fn_builder(net: PolicyValueNet, batch_stats=None):
-    """The actor's `eval_fn_builder(params, batch_stats)` for a torch net:
-    the net is the params, and carries its own BN statistics.  The
-    evaluator serves the weights as they are now (`serving_copy`)."""
+def eval_fn_builder(net: nn.Module, batch_stats=None):
+    """The actor's `eval_fn_builder(params, batch_stats)` for a torch net
+    that maps [B, N, N, C] planes to (log_pi, value): the net is the params,
+    and carries its own BN statistics.  The evaluator serves the weights as
+    they are now (`serving_copy`)."""
     frozen = serving_copy(net)
 
     def eval_fn(feats: torch.Tensor, to_play: torch.Tensor):

@@ -1,0 +1,5 @@
+"""`search.select_expand_share.selfplay`, in the nested-bottleneck self-play cell."""
+
+from harness.core import metric_reader
+
+read = metric_reader("search.select_expand_share.selfplay")

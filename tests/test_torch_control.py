@@ -829,8 +829,14 @@ def test_same_argv_parses_to_same_values():
 
 
 def test_registry_matches_jax_and_refuses_unported():
-    assert sorted(tregistry.MODELS) == sorted(jregistry.MODELS)
-    for name in tregistry.MODELS:
+    # the port's one family more, KataGo's nested-bottleneck net, has no
+    # JAX twin and no learner
+    assert sorted(tregistry.MODELS) == sorted([*jregistry.MODELS,
+                                               "kata_nbt"])
+    with pytest.raises(ValueError, match="no learner"):
+        tregistry.make_trainer("kata_nbt", SIZE, TrainOptions(),
+                               device="cpu")
+    for name in jregistry.MODELS:
         for df in (False, True):
             assert tregistry.family_feature_set(name, df) == \
                 jregistry.family_feature_set(name, df)

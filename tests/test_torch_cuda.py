@@ -163,6 +163,127 @@ def test_net_epilogue_matches_plain_version(dev, C, dtype):
                 assert torch.equal(got.view(bits), want.view(bits))
 
 
+NBT_MODES = [("normact", None), ("skip", None), ("row", None),
+             ("pool", "gpool"), ("pool", "value")]
+
+
+@pytest.mark.parametrize("act", ["mish", "relu"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode,kind", NBT_MODES)
+def test_nbt_epilogues_match_plain_versions(dev, mode, kind, dtype, act):
+    """Each epilogue mode of the nested-bottleneck net bit for bit equal to
+    its plain version at the widths b18c384nbt serves (384, 192, 128, 64,
+    32 channels; the pools at those of at most 192) on 19x19 boards, and
+    at 9x9 and 13x13, at batch sizes that leave the last block's rows
+    partly empty; NaN and infinities included."""
+    from elf_tpu_torch.models import epilogue as epi
+
+    widths = (384, 192, 128, 64, 32)
+    for C in widths[1:] if mode == "pool" else widths:
+        g = torch.Generator(device=dev).manual_seed(C)
+        mean = torch.randn(C, generator=g, device=dev) * 0.5
+        mul = torch.rand(C, generator=g, device=dev) * 2
+        bias = torch.randn(C, generator=g, device=dev) * 0.3
+        for B, hw in ((1, 19), (3, 19), (37, 19), (5, 13), (2, 9)):
+            shape = (B, C, hw, hw)
+            v = (torch.randn(shape, generator=g, device=dev) * 3).to(dtype)
+            v.view(-1)[:3] = torch.tensor([float("nan"), float("inf"),
+                                           -float("inf")], dtype=dtype)
+            v = v.contiguous(memory_format=torch.channels_last)
+            x = torch.randn(shape, generator=g, device=dev).to(
+                dtype).contiguous(memory_format=torch.channels_last)
+            rb = torch.randn((B, C), generator=g, device=dev)
+            if mode == "pool":
+                got = [epi.pool_cuda(v, mean, mul, bias, act, kind)]
+                want = [epi.pool_ref(v, mean, mul, bias, act, kind)]
+            else:
+                kw = {"skip": {"skip": x},
+                      "row": {"rowbias": rb}}.get(mode, {})
+                got = epi.normact_cuda(v, mean, mul, bias, act, **kw)
+                want = epi.normact_ref(v, mean, mul, bias, act, **kw)
+                got, want = ((got, want) if mode == "skip"
+                             else ([got], [want]))
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and a.shape == b.shape
+                if a.dim() == 4:
+                    assert a.is_contiguous(memory_format=torch.channels_last)
+                bits = (torch.int32 if a.dtype == torch.float32
+                        else torch.int16)
+                assert torch.equal(a.view(bits), b.view(bits)), (C, B, hw)
+
+
+def test_nbt_mish_kernel_at_every_fp32_input(dev):
+    """The kernels' mish (its reciprocal taken branch-free) bit for bit
+    equal to the plain version's at every one of the 2^32 fp32 bit
+    patterns (NaN where the plain version gives NaN): the norm-act
+    kernel on fp32 with mean 0, multiplier 1 and bias 0, which leave
+    each input as it is."""
+    from elf_tpu_torch.models import epilogue as epi
+
+    C, chunk = 8, 1 << 26
+    zero = torch.zeros(C, device=dev)
+    one = torch.ones(C, device=dev)
+    for start in range(0, 1 << 32, chunk):
+        bits = torch.arange(start, start + chunk, dtype=torch.int64,
+                            device=dev)
+        bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits)
+        v = bits.to(torch.int32).view(torch.float32).reshape(-1, C, 1, 1)
+        got = epi.normact_cuda(v, zero, one, zero, "mish")
+        want = epi.normact_ref(v, zero, one, zero, "mish")
+        same = (got.view(torch.int32) == want.view(torch.int32)) | (
+            got.isnan() & want.isnan())
+        assert bool(same.all()), (start, v.flatten()[
+            (~same).flatten().nonzero()[:4, 0]].tolist())
+
+
+@pytest.mark.parametrize("B", [1, 32, 2048])
+def test_nbt_serving_forward_close_to_the_modules(dev, B):
+    """b18c384nbt's serving forward (NHWC, the epilogue kernels) against
+    the modules' forward of the same weights at 19x19: bit for bit equal
+    to the serving copy's own modules (its bf16 channels_last weights, no
+    epilogue kernel), and against the modules of the fp32-master net,
+    which cast their weights at each call, log_pi within 3e-2 and the
+    value within 1e-2 (the bounds of the post-activation net's serving
+    path: cuDNN may take another algorithm for such a weight, which moves
+    bf16 convolutions' last bits, and 18 blocks carry them on)."""
+    import copy
+
+    from elf_tpu_torch.models import nbt
+    from elf_tpu_torch.models.resnet import BatchNorm, serving_copy
+
+    net = nbt.build_model(nbt.NbtConfig(), dev, seed=0)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = (torch.rand((max(B, 64), 19, 19, 18), generator=g, device=dev)
+         < 0.3).float()
+    x[..., 16] = 1.0
+    x[..., 17] = 0.0
+    hooks = []
+
+    def set_moments(bn, inputs):
+        h = inputs[0].float()
+        bn.running_mean.copy_(h.mean(dim=(0, 2, 3)))
+        bn.running_var.copy_(h.var(dim=(0, 2, 3), unbiased=False))
+
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, BatchNorm):
+                hooks.append(m.register_forward_pre_hook(set_moments))
+        net(x[:64])
+        for h in hooks:
+            h.remove()
+        frozen = serving_copy(net)
+        assert frozen.serves and frozen.takes_serving_path(x, False)
+        got = frozen(x[:B])
+        want = net(x[:B])
+        modules = copy.deepcopy(frozen)
+        modules.serves = False
+        own = modules(x[:B])
+    assert all(torch.equal(a, b) for a, b in zip(got, own))
+    assert float((got[0] - want[0]).abs().max()) <= 3e-2
+    assert float((got[1] - want[1]).abs().max()) <= 1e-2
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+
+
 def test_step_core_on_card_matches_cpu(dev):
     """Random legal games: the engine on the card (kernels) and on the CPU
     (plain versions) agree on every field."""
