@@ -48,6 +48,19 @@ Phases:
      fails; a pool, which mish's instructions hold under about 79 %, is
      logged as a MISS and kept in the result), its host cost and the
      plain version's time, and the serving forward against the modules'.
+ 3d. train epilogue (after 3b): the learner's epilogue kernels
+     (`csrc/net_train_epilogue.cu` with the serving epilogue kernel,
+     through `train_epilogue_cuda`) against the plain chain's autograd at
+     19x19 C = 256 B = 2048 and 13x13 C = 128 B = 1536, with and without
+     the skip (the card tests hold the tolerances), a second call bit for
+     bit; the forward and backward pairs timed at 19x19 C = 256 B = 2048
+     by graph replay beside their byte bounds, their host cost and the
+     plain chain's time; the 20b256c remat step at batch 2048 with the
+     kernels against the modules, in turns, with its peak memory, 81
+     statistics and 41 backward launches, and no cuDNN layout transpose
+     among its top kernels.  `python3 chip_smoke.py --only
+     train_epilogue` runs phases 1 and 3d alone and prints their kernels
+     line;
  4b. nbt slice (after the slice): the same net drives SelfplayActor
      through `eval_fn_builder` as the slice does, with the launch counts
      set to 0 just before; nbt_normact must launch 110 times and nbt_pool
@@ -307,6 +320,10 @@ EPI_SHAPES = ((19, 1, 120), (19, 32, 120), (19, 2048, 120),
               (13, 192, 60), (13, 1536, 60))
 EPI_TIMED = ((19, 2048), (13, 1536))
 EPI_TOL = (3e-2, 1e-2)
+# the learner's epilogue kernels: (board, channels, batch) timed (the
+# learner cell's layer) and checked (the 13x13 learner's at its batch), and
+# the 20b256c remat step's batch
+TRAIN_EPI_SHAPES = ((19, 256, 2048), (13, 128, 1536))
 
 
 def log(msg: str) -> None:
@@ -739,6 +756,280 @@ def epilogue_phase(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the learner's epilogue kernels (batch statistics and a backward)
+# ---------------------------------------------------------------------------
+
+
+def train_epilogue_inputs(B: int, C: int, hw: int, seed: int) -> dict:
+    """A trunk layer's inputs in bf16 channels_last from a seed: the
+    convolution's output (an offset so that the mean is not 0), BN's weight
+    and bias, the conv bias, a block input and an upstream gradient."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cl = torch.channels_last
+    shape = (B, C, hw, hw)
+
+    def act(scale, shift=0.0):
+        t = torch.randn(shape, generator=g, device="cuda") * scale + shift
+        return t.to(torch.bfloat16).contiguous(memory_format=cl)
+
+    return dict(v=act(1.5, 0.3),
+                weight=torch.randn(C, generator=g, device="cuda") * 0.5 + 1,
+                bias=torch.randn(C, generator=g, device="cuda") * 0.3,
+                conv_bias=torch.randn(C, generator=g, device="cuda") * 0.2,
+                skip=torch.relu(act(1.0)), up=act(1.0))
+
+
+def train_epilogue_errors(t: dict, skip: bool) -> tuple:
+    """The kernels' forward and backward against the plain chain's
+    autograd: (each output's largest difference relative to the plain
+    output's largest value, for the log; each gate's (value, limit)).  The
+    gates are the card tests' (`tests/test_torch_cuda.py`,
+    `test_train_epilogue_matches_plain_chain`), set by the order of the
+    fp32 sums: mean within 1e-5 of sqrt(E[u^2]) and var within 1e-5 of
+    E[u^2], channel by channel; y equal bit for bit to the plain apply
+    (`epilogue_ref`) with the kernels' own statistics, as its count of
+    elements apart, so that y differs from the plain chain only through
+    the statistics' last bits; then y against the plain chain, each
+    element within one bf16 rounding (2^-7 of the value) a cast between
+    them, plus 1e-3 of the largest, as a ratio to that tolerance: one
+    cast, two on a skip layer (relu(skip + y) rounds again after the inner
+    y, which the statistics' last bits can move by one rounding; among
+    the 190 M elements at 19x19 C = 256 B = 2048 some land two roundings
+    apart); d v the same with one rounding; fewer than 1 % of y's
+    elements apart; d skip (a mask of g) bit for bit, as its count of
+    elements apart; d weight and d bias within 1e-3 of their largest; d
+    conv_bias within 2^-6 of the largest channel's sum of |d v|; and a
+    second call equal to the first bit for bit, as its count of outputs
+    apart."""
+    from elf_tpu_torch.models import epilogue as epi
+
+    def run(fn):
+        ins = {k: t[k].clone().requires_grad_(True)
+               for k in ("v", "weight", "bias", "conv_bias", "skip")}
+        y, mean, var = fn(ins["v"], ins["weight"], ins["bias"],
+                          ins["skip"] if skip else None, ins["conv_bias"])
+        y.backward(t["up"])
+        out = dict(y=y, mean=mean, var=var)
+        out.update({f"d{k}": ins[k].grad for k in ins
+                    if k != "skip" or skip})
+        return {k: v.detach() for k, v in out.items()}
+
+    got, again = run(epi.train_epilogue_cuda), run(epi.train_epilogue_cuda)
+    want = run(epi.train_epilogue_ref)
+    torch.cuda.synchronize()
+    d = {k: (got[k].double() - want[k].double()).abs() for k in want}
+    top = {k: float(want[k].double().abs().max()) for k in want}
+    err = {k: float(d[k].max()) / max(top[k], 1e-30) for k in want}
+    bits = lambda x: x.view(torch.int16 if x.dtype == torch.bfloat16  # noqa
+                            else torch.int32)
+    cb = t["conv_bias"].to(t["v"].dtype)
+    with torch.no_grad():
+        mean, _, mul, _ = epi.train_stats_cuda(t["v"], t["weight"], cb)
+        own = epi.epilogue_ref(t["v"], mean, mul, t["bias"],
+                               t["skip"] if skip else None, cb)
+    own_apart = float((bits(own) != bits(got["y"])).sum())
+    del own
+    u = (t["v"] + cb[:, None, None]).double()
+    ex2 = (u * u).mean(dim=(0, 2, 3))
+    del u
+    gates = {
+        "y_own_statistics_apart": (own_apart, 0.0),
+        "mean": (float((d["mean"] / ex2.sqrt()).max()), 1e-5),
+        "var": (float((d["var"] / ex2).max()), 1e-5),
+        "y_share_apart": (float((got["y"] != want["y"]).float().mean()),
+                          0.01),
+        "dweight": (err["dweight"], 1e-3),
+        "dbias": (err["dbias"], 1e-3),
+        "dconv_bias": (float(d["dconv_bias"].max()), 2.0 ** -6 * float(
+            want["dv"].double().abs().sum((0, 2, 3)).max())),
+        "calls_apart": (float(sum(not torch.equal(bits(got[k]),
+                                                  bits(again[k]))
+                                  for k in got)), 0.0),
+    }
+    for k, casts in (("y", 2 if skip else 1), ("dv", 1)):
+        tol = casts * 2.0 ** -7 * want[k].double().abs() + 1e-3 * top[k]
+        gates[k] = (float((d[k] / tol).max()), 1.0)
+    if skip:
+        gates["dskip"] = (float((bits(got["dskip"]) != bits(want["dskip"]))
+                                .sum()), 0.0)
+    err["y_share_apart"] = gates["y_share_apart"][0]
+    return err, gates
+
+
+def train_epilogue_rows(phase: dict) -> list:
+    """The kernels line's rows of the learner's epilogue kernels: the
+    forward pair and the backward pair at 19x19 C = 256 B = 2048."""
+    hw, C, B = TRAIN_EPI_SHAPES[0]
+    t = phase["timings"]
+    rows = []
+    for what in ("forward", "backward"):
+        r = t[f"{hw}x{hw} B={B} plain {what}"]
+        plain = t[f"{hw}x{hw} B={B} plain plain"]
+        rows.append({
+            "name": f"net_train_{what}", "route": "cuda",
+            "source": "elf_tpu_torch/csrc/net_train_epilogue.cu"
+                      + (" + net_epilogue.cu" if what == "forward" else ""),
+            "replaces": None, "launches": phase["step"]["launches"],
+            "ms": r["ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
+            "plain_ms": plain["forward_ms"] if what == "forward"
+            else plain["forward_backward_ms"] - plain["forward_ms"],
+            "library_ms": None, "host_ms": r["host_ms"],
+            "shape": f"{hw}x{hw} C={C} B={B}, no skip",
+            "by_shape": {k: v for k, v in t.items() if what in k},
+        })
+    return rows
+
+
+def train_epilogue_phase(card: str) -> dict:
+    """The learner's epilogue kernels (`csrc/net_train_epilogue.cu` with
+    the serving epilogue kernel, through `train_epilogue_cuda`) against
+    the plain chain's autograd at 19x19 C = 256 B = 2048 and 13x13 C = 128
+    B = 1536, with and without the skip (the card tests hold the
+    tolerances); a second call equal bit for bit; then at 19x19 C = 256 B
+    = 2048 the forward pair (statistics + apply) and the backward pair
+    (reduce + apply) timed by graph replay beside their byte bounds (each
+    input read and each output written once at 3.35 TB/s), their host cost
+    per call and the plain chain's forward and forward + backward; last,
+    the 20b256c remat step at batch 2048 with the kernels against the
+    modules (selected by a BN that normalises its channels as a slice, a
+    mesh attribute), in turns, with its peak memory and its top kernels."""
+    import dataclasses
+
+    from elf_tpu_torch.config import TrainOptions
+    from elf_tpu_torch.models import epilogue as epi
+    from elf_tpu_torch.models.resnet import ModelConfig
+    from elf_tpu_torch.training.trainer import Trainer, load_checkpoint
+
+    checks, timings = {}, {}
+    for hw, C, B in TRAIN_EPI_SHAPES:
+        t = train_epilogue_inputs(B, C, hw, seed=C)
+        for skip in (False, True):
+            e, gates = train_epilogue_errors(t, skip)
+            where = f"{hw}x{hw} C={C} B={B} {'skip' if skip else 'plain'}"
+            checks[where] = dict(e, gates=gates)
+            over = {k: v for k, v in gates.items() if not v[0] <= v[1]}
+            if over:
+                fail(f"train epilogue: the kernels differ from the plain "
+                     f"chain at {where}: (value, limit) {over}")
+            log(f"train epilogue: {where}: against the plain chain, largest "
+                f"difference over the largest value: "
+                + ", ".join(f"{k} {v:.3g}" for k, v in e.items())
+                + "; gates (value / limit): "
+                + ", ".join(f"{k} {v:.3g} / {lim:.3g}"
+                            for k, (v, lim) in gates.items()))
+        del t
+        torch.cuda.empty_cache()
+
+    hw, C, B = TRAIN_EPI_SHAPES[0]
+    t = train_epilogue_inputs(B, C, hw, seed=1)
+    n = t["v"].numel()
+    vec = C * 4
+    for skip in (False, True):
+        args = (t["v"], t["weight"], t["bias"], t["skip"] if skip else None,
+                t["conv_bias"])
+        cb = t["conv_bias"].to(torch.bfloat16)
+        with torch.no_grad():
+            mean, var, mul, gate = epi.train_stats_cuda(t["v"], t["weight"],
+                                                        cb)
+            out = epi.epilogue_cuda(t["v"], mean, mul, t["bias"], args[3], cb)
+        bargs = (t["v"], cb, mean, var, mul, gate, t["bias"],
+                 out if skip else None, t["up"])
+
+        def fwd():
+            with torch.no_grad():
+                epi.train_epilogue_cuda(*args)
+
+        def bwd():
+            epi.train_grad_cuda(*bargs)
+
+        def plain_fwd():
+            with torch.no_grad():
+                epi.train_epilogue_ref(*args)
+
+        def plain_both():
+            ins = [a.detach().requires_grad_(True) if a is not None else None
+                   for a in args]
+            epi.train_epilogue_ref(*ins)[0].backward(t["up"])
+
+        form = "skip" if skip else "plain"
+        # forward: v, bias terms (and skip) read, y written; backward: v,
+        # g (and the output) read, d v (and d skip) written; vectors aside
+        nbytes = {"forward": n * 2 * (3 if skip else 2) + 4 * vec,
+                  "backward": n * 2 * (5 if skip else 3) + 8 * vec}
+        for what, fn in (("forward", fwd), ("backward", bwd)):
+            ms = [graph_ms(fn, 20) for _ in range(2)]
+            r = dict(bytes=nbytes[what],
+                     bound_ms=nbytes[what] / HBM_BYTES_PER_S * 1e3,
+                     ms=float(np.mean(ms)), ms_turns=ms,
+                     host_ms=host_ms(fn, 100))
+            r["bound_share"] = r["bound_ms"] / r["ms"]
+            timings[f"{hw}x{hw} B={B} {form} {what}"] = r
+            log(f"train epilogue: {hw}x{hw} C {C} B {B} {form} {what} pair: "
+                f"device {r['ms']:.6f} ms (graph replay; turns "
+                f"{', '.join(f'{v:.6f}' for v in ms)}), bound "
+                f"{r['bound_ms']:.6f} ms ({r['bytes']} bytes; "
+                f"{100 * r['bound_share']:.1f} % of it), host "
+                f"{r['host_ms']:.6f} ms/call")
+        plain = dict(forward_ms=cuda_time_ms(plain_fwd, 5),
+                     forward_backward_ms=cuda_time_ms(plain_both, 5))
+        timings[f"{hw}x{hw} B={B} {form} plain"] = plain
+        log(f"train epilogue: {hw}x{hw} C {C} B {B} {form}: the plain chain "
+            f"{plain['forward_ms']:.4f} ms forward, "
+            f"{plain['forward_backward_ms']:.4f} ms forward + backward "
+            "(CUDA events)")
+    del t, args, bargs, out
+    torch.cuda.empty_cache()
+
+    # the remat step at batch 2048, kernels against the modules
+    cfg = dataclasses.replace(ModelConfig(), remat=True)
+    tr = Trainer(cfg, TrainOptions(batchsize=REMAT_BATCH), device="cuda")
+    batch = synthetic_batch(REMAT_BATCH, 3)
+    states = {}
+    for kind in ("kernels", "modules"):
+        st = load_checkpoint(str(ROOT / "runs/prove19/export-best.bin"),
+                             tr.init_state(torch.Generator().manual_seed(0)))
+        if kind == "modules":
+            st.net.blocks[0].bn1.channels = slice(None)
+        if st.net.takes_train_epilogues(batch[0], True) != (
+                kind == "kernels"):
+            fail(f"train epilogue: the {kind} state takes the wrong path")
+        states[kind] = st
+    step = {"kernels": [], "modules": []}
+    peak = {}
+    for kind in ("modules", "kernels", "kernels", "modules"):
+        med, ms, pk, _ = time_steps(tr, states[kind], batch, 1, 3)
+        step[kind].append(med)
+        peak[kind] = max(peak.get(kind, 0), pk)
+    launched = dict(epi.launches)
+    prof = profile_call(lambda: tr.make_train_step()(states["kernels"],
+                                                     *batch),
+                        f"one remat step at B {REMAT_BATCH} with the "
+                        "learner's epilogue kernels", card)
+    ran = {k: epi.launches[k] - launched[k] for k in launched}
+    if ran["net_train_stats"] != 81 or ran["net_train_grad"] != 41:
+        fail(f"train epilogue: a remat step launched {ran}, expected 81 "
+             "statistics and 41 backward launches")
+    if any("nchwToNhwc" in k or "nhwcToNchw" in k
+           for k, _ in prof["top_kernels_ms"]):
+        fail("train epilogue: a cuDNN layout transpose among the step's "
+             "top kernels")
+    kern = float(np.mean(step["kernels"]))
+    mods = float(np.mean(step["modules"]))
+    log(f"train epilogue: the 20b256c remat step at B {REMAT_BATCH}: "
+        f"kernels {kern:.2f} ms ({REMAT_BATCH / kern * 1e3:.1f} positions/s,"
+        f" peak {peak['kernels'] / 2 ** 30:.2f} GiB), modules {mods:.2f} ms "
+        f"({REMAT_BATCH / mods * 1e3:.1f} positions/s, peak "
+        f"{peak['modules'] / 2 ** 30:.2f} GiB), x {mods / kern:.3f} "
+        f"(CUDA events, medians of 3 in turns); launches a step {ran}, "
+        f"on {card}")
+    del tr, states, batch
+    torch.cuda.empty_cache()
+    return {"checks": checks, "timings": timings,
+            "step": dict(ms=step, peak_bytes=peak, launches=ran,
+                         profile=prof)}
+
+
+# ---------------------------------------------------------------------------
 # phase 3c: the nested-bottleneck net's epilogue kernels
 # ---------------------------------------------------------------------------
 
@@ -973,7 +1264,9 @@ def nbt_phase(card: str) -> dict:
     profiling.reset()
     ran = {k: epi.launches[k] - launched[k] for k in launched}
     if counts != {"net.forwards": 1, "net.epilogues": 118, "net.gpools": 8} \
-            or ran != {"net_epilogue": 0, "nbt_normact": 110, "nbt_pool": 8}:
+            or ran != {"net_epilogue": 0, "net_train_stats": 0,
+                       "net_train_grad": 0, "nbt_normact": 110,
+                       "nbt_pool": 8}:
         fail(f"nbt: counters {counts}, kernel launches {ran} for one "
              "forward")
     kernels_ms = {}
@@ -4355,13 +4648,24 @@ def main() -> int:
     log(f"card: {card} | torch {torch.__version__} | CUDA "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
-    if sys.argv[1:] == ["--only", "nbt"]:
-        result = {"card": card, "kind": kind, "nbt": nbt_phase(card),
-                  "nbt_slice": nbt_slice_phase(card)}
-        rows = nbt_kernel_rows(result["nbt"], result["nbt_slice"])
+    if sys.argv[1:] in (["--only", "nbt"], ["--only", "train_epilogue"]):
+        only = sys.argv[2]
+        if only == "nbt":
+            result = {"card": card, "kind": kind, "nbt": nbt_phase(card),
+                      "nbt_slice": nbt_slice_phase(card)}
+            rows = nbt_kernel_rows(result["nbt"], result["nbt_slice"])
+        else:
+            for name in ("net_epilogue", "net_train_epilogue"):
+                for line in _build.build(name)[1].splitlines():
+                    if any(w in line for w in ("entry function", "registers",
+                                               "spill", "smem")):
+                        log(f"build: {line.strip()}")
+            result = {"card": card, "kind": kind,
+                      "train_epilogue": train_epilogue_phase(card)}
+            rows = train_epilogue_rows(result["train_epilogue"])
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
-        (out_dir / "chip_smoke_nbt.json").write_text(
+        (out_dir / f"chip_smoke_{only}.json").write_text(
             json.dumps(result, indent=1))
         print(card, flush=True)
         print(json.dumps({"kernels": rows}), flush=True)
@@ -4369,7 +4673,7 @@ def main() -> int:
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
-    for name in ("go_libs", "net_epilogue"):     # the CUDA kernels
+    for name in ("go_libs", "net_epilogue", "net_train_epilogue"):
         t0 = time.perf_counter()
         path, text = _build.build(name)
         log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
@@ -4385,6 +4689,7 @@ def main() -> int:
     result = {"card": card, "kind": kind}
     result["kernels"] = kernel_phase(np.random.default_rng(0))
     result["epilogue"] = epilogue_phase(card)
+    result["train_epilogue"] = train_epilogue_phase(card)
     result["nbt"] = nbt_phase(card)
     result["slice"], net = slice_phase(card)
     result["nbt_slice"] = nbt_slice_phase(card)
@@ -4451,6 +4756,7 @@ def main() -> int:
         "by_shape": {k_: v for k_, v in e.items()
                      if not k_.endswith("forward")},
     })
+    rows.extend(train_epilogue_rows(result["train_epilogue"]))
     rows.extend(nbt_kernel_rows(result["nbt"], result["nbt_slice"]))
     k["timings"] = {f"{n} {boards} B={B}": v
                     for (n, boards, B), v in k["timings"].items()}

@@ -23,6 +23,36 @@ add of `ResBlock.forward`), so every version here gives the same bits.
  - `epilogue`: the kernel for a CUDA tensor, the plain version for a CPU
    tensor, counted as `net.epilogues` while tracing is on.
 
+The learner's trunk (`PolicyValueNet`'s training forward) has one more,
+`train_epilogue`, after each trunk convolution `v` (compute dtype, NHWC)
+of a training forward, with BatchNorm's batch statistics:
+
+    v = v + conv_bias                   (where given: cuDNN's own bias add)
+    x = float(v);  mean = x.mean(B, H, W)
+    var = max(0, (x * x).mean(B, H, W) - mean^2)    (flax's variance)
+    y = relu((x - mean) * (rsqrt(var + eps) * weight) + bias).to(dtype)
+    y = relu(skip + y)                  (where given: the residual add)
+    -> (y, mean, var), and the gradients of v, conv_bias, weight, bias, skip
+
+ - `train_epilogue_ref`: the plain version, the torch ops of
+   `BatchNorm.batch_norm` + ReLU + casts (+ `ResBlock`'s skip add) in
+   their order, whose autograd is the backward: what the kernels are held
+   against (a CPU training forward keeps the modules themselves);
+ - `train_epilogue_cuda`: the kernels of `csrc/net_train_epilogue.cu`,
+   joined by a `torch.autograd.Function`.  Forward: the batch statistics
+   (a pass over v and a small launch that sums the blocks' partials in a
+   fixed order: `launches["net_train_stats"]`), then the serving kernel
+   `epilogue_cuda` with them; backward: a reduce pass, a small launch, an
+   apply pass that writes d v (and d skip) in the compute dtype
+   (`launches["net_train_grad"]`).  It saves v, the statistics and, on a
+   skip layer, its output, and no fp32 activation; two calls on the same
+   input give the same bits.  Activations channels_last, bf16 or fp32, as
+   `epilogue_cuda`;
+ - `train_epilogue`: the kernels, counted as `net.train_epilogues` (each
+   forward call) and `net.train_epilogue_grads` (each backward call) while
+   tracing is on; a CPU tensor is refused, never sent to the plain
+   version.
+
 The pre-activation nested-bottleneck net (`models/nbt.py`) has two more,
 each with an activation `act`, "relu" or "mish" (`mish`, KataGo's form of
 x * tanh(softplus(x))), and the kernels of `csrc/nbt_epilogue.cu`, a
@@ -57,9 +87,13 @@ import torch.nn.functional as F
 from elf_tpu_torch import profiling
 
 # Launches of each CUDA kernel, by kernel name (one per wrapper call that
-# launched): `epilogue_cuda`'s, and the nested-bottleneck net's
-# (`normact_cuda`, `pool_cuda`).
-launches = {"net_epilogue": 0, "nbt_normact": 0, "nbt_pool": 0}
+# launched): `epilogue_cuda`'s, the learner's statistics and backward
+# (`train_epilogue_cuda`, whose forward also launches `epilogue_cuda`), and
+# the nested-bottleneck net's (`normact_cuda`, `pool_cuda`).
+launches = {"net_epilogue": 0, "net_train_stats": 0, "net_train_grad": 0,
+            "nbt_normact": 0, "nbt_pool": 0}
+
+BN_EPS = 1e-5
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -104,6 +138,31 @@ def _check_layout(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: expected 16-byte alignment")
 
 
+def _check_v(v: torch.Tensor) -> tuple:
+    """The checks every kernel makes of its activation v; returns (B, C, H,
+    W)."""
+    if not v.is_cuda:
+        raise ValueError(f"v: expected a CUDA tensor, got {v.device}")
+    if v.dtype not in _DTYPES or v.dim() != 4:
+        raise TypeError(f"v: expected a 4-d bf16 or fp32 tensor, got "
+                        f"{v.dtype} {tuple(v.shape)}")
+    _check_layout(v, "v")
+    B, C, H, W = v.shape
+    lanes = 16 // v.element_size()
+    if C % lanes or C // lanes > 256:
+        raise ValueError(f"v: {C} channels; the kernels take multiples of "
+                         f"{lanes} up to {256 * lanes}")
+    return B, C, H, W
+
+
+def _check_skip(skip: torch.Tensor, v: torch.Tensor) -> None:
+    if (skip.device, skip.dtype, skip.shape) != (v.device, v.dtype, v.shape):
+        raise ValueError(f"skip: expected {v.dtype} {tuple(v.shape)} on "
+                         f"{v.device}, got {skip.dtype} {tuple(skip.shape)} "
+                         f"on {skip.device}")
+    _check_layout(skip, "skip")
+
+
 def _check_channel(t: torch.Tensor, name: str, dtype: torch.dtype, C: int,
                    device) -> None:
     if t.device != device or t.dtype != dtype or t.shape != (C,) \
@@ -119,28 +178,13 @@ def epilogue_cuda(v: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
     """The CUDA kernel: v [B, C, H, W] channels_last, bf16 or fp32, C a
     multiple of 16 bytes' lanes; the rest as `epilogue_ref`.  Returns a new
     channels_last tensor like v."""
-    if not v.is_cuda:
-        raise ValueError(f"v: expected a CUDA tensor, got {v.device}")
-    if v.dtype not in _DTYPES or v.dim() != 4:
-        raise TypeError(f"v: expected a 4-d bf16 or fp32 tensor, got "
-                        f"{v.dtype} {tuple(v.shape)}")
-    _check_layout(v, "v")
-    B, C, H, W = v.shape
-    lanes = 16 // v.element_size()
-    if C % lanes or C // lanes > 256:
-        raise ValueError(f"v: {C} channels; the kernel takes multiples of "
-                         f"{lanes} up to {256 * lanes}")
+    B, C, H, W = _check_v(v)
     for t, name in ((mean, "mean"), (mul, "mul"), (bias, "bias")):
         _check_channel(t, name, torch.float32, C, v.device)
     if conv_bias is not None:
         _check_channel(conv_bias, "conv_bias", v.dtype, C, v.device)
     if skip is not None:
-        if (skip.device, skip.dtype, skip.shape) != (v.device, v.dtype,
-                                                     v.shape):
-            raise ValueError(f"skip: expected {v.dtype} {tuple(v.shape)} on "
-                             f"{v.device}, got {skip.dtype} "
-                             f"{tuple(skip.shape)} on {skip.device}")
-        _check_layout(skip, "skip")
+        _check_skip(skip, v)
     out = torch.empty_like(v, memory_format=torch.channels_last)
     if v.numel() == 0:
         return out
@@ -163,6 +207,172 @@ def epilogue(v: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
     if v.is_cuda:
         return epilogue_cuda(v, mean, mul, bias, skip, conv_bias)
     return epilogue_ref(v, mean, mul, bias, skip, conv_bias)
+
+
+# ---------------------------------------------------------------------------
+# the learner's trunk: batch statistics and a backward
+# ---------------------------------------------------------------------------
+
+def train_epilogue_ref(v: torch.Tensor, weight: torch.Tensor,
+                       bias: torch.Tensor, skip: Optional[torch.Tensor] = None,
+                       conv_bias: Optional[torch.Tensor] = None):
+    """Plain version: v [B, C, H, W] in the compute dtype; weight, bias and
+    conv_bias BN's and the convolution's fp32 [C]; skip like v.  Returns
+    (y, mean, var), differentiable in every tensor argument."""
+    dt = v.dtype
+    if conv_bias is not None:
+        v = v + conv_bias.to(dt)[:, None, None]
+    x = v.float()
+    mean = x.mean(dim=(0, 2, 3))
+    var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+    mul = torch.rsqrt(var + BN_EPS) * weight
+    y = (x - mean[:, None, None]) * mul[:, None, None]
+    y = F.relu(y + bias[:, None, None]).to(dt)
+    return (y if skip is None else F.relu(skip + y)), mean, var
+
+
+_train_lib = None
+_capacity: dict = {}
+
+
+def _train_kernel():
+    global _train_lib
+    if _train_lib is None:
+        from elf_tpu_torch import _build
+
+        lib = _build.load("net_train_epilogue")
+        vp, i, ll, d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                        ctypes.c_double)
+        lib.net_train_capacity.argtypes = [i, i]
+        lib.net_train_stats.argtypes = [vp, vp, vp, vp, i, vp, vp, vp, vp,
+                                        ll, i, i, d, vp]
+        lib.net_train_grad.argtypes = [vp] * 12 + [i] + [vp] * 5 + [ll, i, i,
+                                                                   d, vp]
+        lib.net_train_capacity.restype = lib.net_train_stats.restype = i
+        lib.net_train_grad.restype = i
+        _train_lib = lib
+    return _train_lib
+
+
+def _partials(v: torch.Tensor) -> tuple:
+    """(scratch, capacity): room for the partial sums of the most blocks a
+    pass over v may launch on its card (found once per card and shape)."""
+    C = v.shape[1]
+    key = (v.device, C, v.dtype)
+    if key not in _capacity:
+        with torch.cuda.device(v.device):
+            n = _train_kernel().net_train_capacity(C, _DTYPES[v.dtype])
+        if n <= 0:
+            raise RuntimeError(f"net_train_capacity: CUDA error {-n}")
+        _capacity[key] = n
+    n = _capacity[key]
+    return torch.empty((n, 2, C), dtype=torch.float32, device=v.device), n
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def train_stats_cuda(v: torch.Tensor, weight: torch.Tensor,
+                     conv_bias: Optional[torch.Tensor] = None) -> tuple:
+    """The statistics kernels: (mean, var, mul, gate) fp32 [C] of v (+ the
+    conv bias, in v's dtype): flax's batch mean and variance, mul =
+    rsqrt(var + eps) * weight, gate 1 where the variance was not clamped.
+    Inputs as `train_epilogue_cuda` checks them."""
+    B, C, H, W = v.shape
+    mean, var, mul, gate = (torch.empty(C, dtype=torch.float32,
+                                        device=v.device) for _ in range(4))
+    scratch, capacity = _partials(v)
+    rc = _train_kernel().net_train_stats(
+        v.data_ptr(), _ptr(conv_bias), weight.data_ptr(), scratch.data_ptr(),
+        capacity, mean.data_ptr(), var.data_ptr(), mul.data_ptr(),
+        gate.data_ptr(), B * H * W, C, _DTYPES[v.dtype], BN_EPS,
+        torch.cuda.current_stream(v.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"net_train_stats: CUDA error {rc} at launch")
+    launches["net_train_stats"] += 1
+    return mean, var, mul, gate
+
+
+def train_grad_cuda(v: torch.Tensor, conv_bias: Optional[torch.Tensor],
+                    mean: torch.Tensor, var: torch.Tensor, mul: torch.Tensor,
+                    gate: torch.Tensor, bias: torch.Tensor,
+                    out: Optional[torch.Tensor], g: torch.Tensor) -> tuple:
+    """The backward kernels of a layer, given g = d y: (d v, d skip, d
+    weight, d bias, d conv_bias), d skip None without `out` (the output of
+    a skip layer) and d conv_bias None without a conv bias (in v's dtype)."""
+    B, C, H, W = v.shape
+    dv = torch.empty_like(v, memory_format=torch.channels_last)
+    dskip = None if out is None else torch.empty_like(
+        v, memory_format=torch.channels_last)
+    coef1, coef2, dweight, dbias = (torch.empty(
+        C, dtype=torch.float32, device=v.device) for _ in range(4))
+    dcb = None if conv_bias is None else torch.empty_like(dbias)
+    scratch, capacity = _partials(v)
+    rc = _train_kernel().net_train_grad(
+        v.data_ptr(), _ptr(conv_bias), mean.data_ptr(), var.data_ptr(),
+        mul.data_ptr(), gate.data_ptr(), bias.data_ptr(), _ptr(out),
+        g.data_ptr(), dv.data_ptr(), _ptr(dskip), scratch.data_ptr(),
+        capacity, coef1.data_ptr(), coef2.data_ptr(), dweight.data_ptr(),
+        dbias.data_ptr(), _ptr(dcb), B * H * W, C, _DTYPES[v.dtype], BN_EPS,
+        torch.cuda.current_stream(v.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"net_train_grad: CUDA error {rc} at launch")
+    launches["net_train_grad"] += 1
+    return dv, dskip, dweight, dbias, dcb
+
+
+class _TrainEpilogue(torch.autograd.Function):
+    """One trunk layer of a training forward on the card: the statistics
+    kernels, the serving epilogue kernel with them, and the backward
+    kernels.  Saves v (the conv bias in v's dtype), the statistics and, on
+    a skip layer, the output."""
+
+    @staticmethod
+    def forward(ctx, v, conv_bias, weight, bias, skip):
+        cb = None if conv_bias is None else conv_bias.to(v.dtype)
+        mean, var, mul, gate = train_stats_cuda(v, weight, cb)
+        y = epilogue_cuda(v, mean, mul, bias, skip, cb)
+        ctx.save_for_backward(v, cb, mean, var, mul, gate, bias,
+                              y if skip is not None else None)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        profiling.count("net.train_epilogue_grads")
+        v, cb, mean, var, mul, gate, bias, out = ctx.saved_tensors
+        g = gy.contiguous(memory_format=torch.channels_last)
+        dv, dskip, dweight, dbias, dcb = train_grad_cuda(
+            v, cb, mean, var, mul, gate, bias, out, g)
+        return dv, dcb, dweight, dbias, dskip
+
+
+def train_epilogue_cuda(v: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor,
+                        skip: Optional[torch.Tensor] = None,
+                        conv_bias: Optional[torch.Tensor] = None):
+    """The kernels of `train_epilogue_ref`, differentiable: v [B, C, H, W]
+    channels_last, bf16 or fp32, C a multiple of 16 bytes' lanes, at least
+    one pixel; the rest as `train_epilogue_ref`.  Returns (y, mean, var), y
+    a new channels_last tensor like v."""
+    B, C, H, W = _check_v(v)
+    if B * H * W == 0:
+        raise ValueError("v: the batch statistics need at least one pixel")
+    for t, name in ((weight, "weight"), (bias, "bias")):
+        _check_channel(t, name, torch.float32, C, v.device)
+    if conv_bias is not None:
+        _check_channel(conv_bias, "conv_bias", torch.float32, C, v.device)
+    if skip is not None:
+        _check_skip(skip, v)
+    return _TrainEpilogue.apply(v, conv_bias, weight, bias, skip)
+
+
+def train_epilogue(v: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   skip: Optional[torch.Tensor] = None,
+                   conv_bias: Optional[torch.Tensor] = None):
+    profiling.count("net.train_epilogues")
+    return train_epilogue_cuda(v, weight, bias, skip, conv_bias)
 
 
 # ---------------------------------------------------------------------------
@@ -270,17 +480,7 @@ def _nbt_kernel():
 
 def _check_input(v: torch.Tensor, mean, mul, bias, act: str) -> tuple:
     """The checks both kernels make; returns (B, C, H, W)."""
-    if not v.is_cuda:
-        raise ValueError(f"v: expected a CUDA tensor, got {v.device}")
-    if v.dtype not in _DTYPES or v.dim() != 4:
-        raise TypeError(f"v: expected a 4-d bf16 or fp32 tensor, got "
-                        f"{v.dtype} {tuple(v.shape)}")
-    _check_layout(v, "v")
-    B, C, H, W = v.shape
-    lanes = 16 // v.element_size()
-    if C % lanes or C // lanes > 256:
-        raise ValueError(f"v: {C} channels; the kernels take multiples of "
-                         f"{lanes} up to {256 * lanes}")
+    B, C, H, W = _check_v(v)
     for t, name in ((mean, "mean"), (mul, "mul"), (bias, "bias")):
         _check_channel(t, name, torch.float32, C, v.device)
     activation(act)
@@ -298,12 +498,7 @@ def normact_cuda(v: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
     if skip is not None and rowbias is not None:
         raise ValueError("normact: a skip and a row bias together")
     if skip is not None:
-        if (skip.device, skip.dtype, skip.shape) != (v.device, v.dtype,
-                                                     v.shape):
-            raise ValueError(f"skip: expected {v.dtype} {tuple(v.shape)} on "
-                             f"{v.device}, got {skip.dtype} "
-                             f"{tuple(skip.shape)} on {skip.device}")
-        _check_layout(skip, "skip")
+        _check_skip(skip, v)
     if rowbias is not None and B * H * W >= 2**31:
         raise ValueError(f"v: {B * H * W} pixels; with a row bias the "
                          "kernel takes fewer than 2^31")

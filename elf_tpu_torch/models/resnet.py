@@ -47,9 +47,22 @@ its bias, then one epilogue kernel (`models/epilogue.py`): the bias add,
 BN, ReLU, the casts and, after a block's second convolution, the skip add
 and its ReLU, with the modules' roundings and order of operations, so it
 gives their bits (cuDNN may pick another convolution algorithm for the
-NHWC layout, which can move a forward's last bits).  The heads, the
-training forward, `PolicyNet` and a sharded net keep the modules.  `net.forwards` counts serving forwards and `net.epilogues`
-the epilogues while tracing is on.
+NHWC layout, which can move a forward's last bits).  The heads, `PolicyNet`
+and a sharded net keep the modules.  `net.forwards` counts serving forwards
+and `net.epilogues` the epilogues while tracing is on.
+
+The training path (`_train_layer`).  A training forward on a CUDA input of
+a net without mesh attributes, whose channels are a multiple of 8, runs
+each trunk layer as its convolution and one training epilogue
+(`models/epilogue.py`'s `train_epilogue`): BN with the batch statistics,
+ReLU, the casts and the skip add, hand-written CUDA forward and backward,
+returning the statistics.  The activations and their gradients stay
+channels_last from the first convolution to the heads, and each
+convolution runs without its bias (the epilogue adds it) and with its
+weight cast to channels_last per call.  A CPU input keeps the modules.
+`net.train_epilogues` counts the epilogues' forward calls (a recomputed
+block's too) and `net.train_epilogue_grads` their backward calls while
+tracing is on.
 """
 
 from __future__ import annotations
@@ -66,9 +79,7 @@ from torch.utils.checkpoint import checkpoint
 
 from elf_tpu_torch import profiling
 from elf_tpu_torch.device import DeviceLike, resolve_device
-from elf_tpu_torch.models.epilogue import epilogue
-
-BN_EPS = 1e-5
+from elf_tpu_torch.models.epilogue import BN_EPS, epilogue, train_epilogue
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,11 +226,18 @@ class ResBlock(nn.Module):
         self.conv2 = Conv(dim, dim, 3, dtype)
         self.bn2 = BatchNorm(dim, momentum)
 
-    def forward(self, x: torch.Tensor, train: bool = False):
+    def forward(self, x: torch.Tensor, train: bool = False,
+                epilogues: bool = False):
         """(output, batch statistics): with `train` the four tensors
-        (mean1, var1, mean2, var2), which the caller writes; else ()."""
+        (mean1, var1, mean2, var2), which the caller writes; else ().  With
+        `epilogues` (a training forward) each layer is one training
+        epilogue (`_train_layer`)."""
         dt = x.dtype
         stats = [] if train else None
+        if epilogues:
+            y = _train_layer(self.conv1, self.bn1, x, stats)
+            y = _train_layer(self.conv2, self.bn2, y, stats, skip=x)
+            return y, tuple(stats)
         y = F.relu(_bn(self.bn1, self.conv1(x), stats))
         y = F.relu(_bn(self.bn2, self.conv2(y.to(dt)), stats))
         return F.relu(x + y.to(dt)), tuple(stats or ())
@@ -250,6 +268,12 @@ class PolicyValueNet(nn.Module):
         input, the running statistics."""
         return not train and x.is_cuda and self.serving_muls is not None
 
+    def takes_train_epilogues(self, x: torch.Tensor, train: bool) -> bool:
+        """Whether `forward` runs its trunk through the training epilogues
+        (`_train_layer`): a training forward on a CUDA input of a net
+        without mesh attributes whose channels are a multiple of 8."""
+        return train and x.device.type == "cuda" and _unsharded(self)
+
     def forward(self, x: torch.Tensor,
                 train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: [B, N, N, C] float32 -> (log_pi [B, A] f32, value [B] f32).
@@ -260,13 +284,17 @@ class PolicyValueNet(nn.Module):
             return self.serve(x)
         dt = self.cfg.compute_dtype
         stats = [] if train else None
+        fused = self.takes_train_epilogues(x, train)
         h = x.permute(0, 3, 1, 2).to(dt)
-        h = F.relu(_bn(self.init_bn, self.init_conv(h), stats)).to(dt)
+        if fused:
+            h = _train_layer(self.init_conv, self.init_bn, h, stats)
+        else:
+            h = F.relu(_bn(self.init_bn, self.init_conv(h), stats)).to(dt)
         for block in self.blocks:
             if train and self.cfg.remat:
-                h, bs = checkpoint(block, h, True, use_reentrant=False)
+                h, bs = checkpoint(block, h, True, fused, use_reentrant=False)
             else:
-                h, bs = block(h, train)
+                h, bs = block(h, train, fused)
             if train:
                 stats += bs
         log_pi, value = self._heads(h, stats)
@@ -340,6 +368,22 @@ def _trunk_layer(conv: Conv, bn: BatchNorm, mul: torch.Tensor,
     else:
         v, conv_bias = conv(h), None
     return epilogue(v, bn.running_mean, mul, bn.bias, skip, conv_bias)
+
+
+def _train_layer(conv: Conv, bn: BatchNorm, h: torch.Tensor,
+                 stats: list, skip: Optional[torch.Tensor] = None):
+    """relu(bn(conv(h))) with the batch statistics, or with `skip`
+    relu(skip + relu(bn(conv(h)))), in the compute dtype on the card: the
+    convolution on channels_last activations, its weight cast to
+    channels_last per call and without its bias, then one training
+    epilogue (`models/epilogue.py`), which adds the bias as the serving
+    path does; appends (mean, var) to `stats`."""
+    h = h.contiguous(memory_format=torch.channels_last)
+    w = conv.weight.to(conv.dtype, memory_format=torch.channels_last)
+    v = F.conv2d(h, w, None, padding=conv.padding)
+    y, mean, var = train_epilogue(v, bn.weight, bn.bias, skip, conv.bias)
+    stats += [mean, var]
+    return y
 
 
 # 1 / stddev of a unit normal truncated to (-2, 2): flax's `lecun_normal`
@@ -516,17 +560,23 @@ def load_model(path: str, cfg: ModelConfig,
                            device)
 
 
-def _can_serve(net: PolicyValueNet) -> bool:
-    """Whether a copy can take the serving path: every parameter frozen, no
-    mesh attribute set, channels a multiple of 8."""
-    if any(p.requires_grad for p in net.parameters()):
-        return False
+def _unsharded(net: PolicyValueNet) -> bool:
+    """Whether the epilogue kernels can take the net's trunk: no mesh
+    attribute set, channels a multiple of 8."""
     for m in net.modules():
         if getattr(m, "tp", None) is not None or (
                 isinstance(m, BatchNorm)
                 and (m.sync is not None or m.channels is not None)):
             return False
     return net.cfg.dim % 8 == 0
+
+
+def _can_serve(net: PolicyValueNet) -> bool:
+    """Whether a copy can take the serving path: every parameter frozen, no
+    mesh attribute set, channels a multiple of 8."""
+    if any(p.requires_grad for p in net.parameters()):
+        return False
+    return _unsharded(net)
 
 
 def serving_copy(net: nn.Module) -> nn.Module:

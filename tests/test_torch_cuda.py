@@ -163,6 +163,176 @@ def test_net_epilogue_matches_plain_version(dev, C, dtype):
                 assert torch.equal(got.view(bits), want.view(bits))
 
 
+TRAIN_SHAPES = {"19x19 C=256": (16, 256, 19), "13x13 C=128": (37, 128, 13)}
+
+
+def _train_layer_inputs(dev, B, C, hw, dtype, seed):
+    """A convolution's output (an offset, so that the mean is not 0), BN's
+    weight and bias, a conv bias, a block input and an upstream gradient,
+    channels_last."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cl = torch.channels_last
+    shape = (B, C, hw, hw)
+    v = (torch.randn(shape, generator=g, device=dev) * 1.5 + 0.3).to(
+        dtype).contiguous(memory_format=cl)
+    weight = torch.randn(C, generator=g, device=dev) * 0.5 + 1.0
+    bias = torch.randn(C, generator=g, device=dev) * 0.3
+    cb = torch.randn(C, generator=g, device=dev) * 0.2
+    x = torch.relu(torch.randn(shape, generator=g, device=dev)).to(
+        dtype).contiguous(memory_format=cl)
+    up = torch.randn(shape, generator=g, device=dev).to(dtype).contiguous(
+        memory_format=cl)
+    return v, weight, bias, cb, x, up
+
+
+def _train_layer_run(fn, v, weight, bias, cb, x, up, skip, conv_bias):
+    """y, mean, var and the gradients of v, weight, bias, conv bias and
+    skip after backward(up)."""
+    ins = [t.clone().requires_grad_(True) for t in (v, weight, bias, cb, x)]
+    y, mean, var = fn(ins[0], ins[1], ins[2], ins[4] if skip else None,
+                      ins[3] if conv_bias else None)
+    y.backward(up)
+    return dict(y=y.detach(), mean=mean, var=var, dv=ins[0].grad,
+                dweight=ins[1].grad, dbias=ins[2].grad, dconv_bias=ins[3].grad,
+                dskip=ins[4].grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", sorted(TRAIN_SHAPES))
+def test_train_epilogue_matches_plain_chain(dev, shape, dtype):
+    """The learner's epilogue kernels against the plain autograd chain, with
+    and without the skip and the conv bias.  They differ only in the order
+    of the fp32 sums (the kernels sum per thread, per block and in double
+    across blocks; torch reduces in its own tree and differentiates E[x^2]
+    - mean^2 term by term), so: mean within 1e-5 of the root mean square,
+    var within 1e-5 of E[x^2] (the formula's own cancellation); y and the
+    gradient of v, rounded to the compute dtype from fp32 values that
+    differ in their last bits, within one rounding (2^-7 of the value) plus
+    1e-3 of the largest (fp32: 1e-4 of the largest); the gradient of skip,
+    the upstream gradient masked by the output, bit for bit; the weight and
+    bias gradients, sums over the batch, within 1e-3 of the largest; the
+    conv bias gradient, a sum of d v that cancels to its roundings, within
+    2^-6 of the sum of |d v|; and in bf16 fewer than 1 % of y's elements
+    apart (in fp32 every element carries the mean's last bits).  y itself
+    is the plain apply (`epilogue_ref`) with the kernels' statistics, bit
+    for bit."""
+    from elf_tpu_torch.models import epilogue as epi
+
+    B, C, hw = TRAIN_SHAPES[shape]
+    tensors = _train_layer_inputs(dev, B, C, hw, dtype, seed=C + hw)
+    for skip in (False, True):
+        for conv_bias in (False, True):
+            got = _train_layer_run(epi.train_epilogue_cuda, *tensors, skip,
+                                   conv_bias)
+            want = _train_layer_run(epi.train_epilogue_ref, *tensors, skip,
+                                    conv_bias)
+            torch.cuda.synchronize()
+            where = (shape, skip, conv_bias)
+            assert got["y"].is_contiguous(memory_format=torch.channels_last)
+            assert got["dv"].is_contiguous(memory_format=torch.channels_last)
+            # the forward is the plain apply with the kernels' own statistics
+            cb = tensors[3].to(dtype) if conv_bias else None
+            mean, _, mul, _ = epi.train_stats_cuda(tensors[0], tensors[1], cb)
+            own = epi.epilogue_ref(tensors[0], mean, mul, tensors[2],
+                                   tensors[4] if skip else None, cb)
+            assert torch.equal(own, got["y"]), where
+            u = tensors[0].float()
+            if conv_bias:
+                u = (tensors[0] + tensors[3].to(dtype)[:, None, None]).float()
+            ex2 = (u * u).mean(dim=(0, 2, 3))
+            dm = (got["mean"] - want["mean"].detach()).abs()
+            dvar = (got["var"] - want["var"].detach()).abs()
+            assert float((dm / ex2.sqrt()).max()) <= 1e-5, where
+            assert float((dvar / ex2).max()) <= 1e-5, where
+            if skip:
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                assert torch.equal(got["dskip"].view(bits),
+                                   want["dskip"].view(bits)), where
+            else:
+                assert got["dskip"] is None and want["dskip"] is None
+            for name in ("y", "dv"):
+                a, b = got[name].double(), want[name].double()
+                top = float(b.abs().max())
+                tol = (1e-4 * top if dtype == torch.float32
+                       else 2.0 ** -7 * b.abs() + 1e-3 * top)
+                assert bool(((a - b).abs() <= tol).all()), (name, where)
+            if dtype == torch.bfloat16:
+                assert float((got["y"] != want["y"]).float().mean()) < 0.01
+            for name in ("dweight", "dbias"):
+                a, b = got[name], want[name]
+                assert float((a - b).abs().max()) <= 1e-3 * float(
+                    b.abs().max()), (name, where)
+            if conv_bias:
+                bound = 2.0 ** -6 * float(want["dv"].double().abs().sum(
+                    (0, 2, 3)).max())
+                assert float((got["dconv_bias"] - want["dconv_bias"]).abs()
+                             .max()) <= bound, where
+            else:
+                assert got["dconv_bias"] is None
+
+
+def test_train_epilogue_repeats_bit_for_bit(dev):
+    """Two calls of the forward and of the backward on the same input give
+    the same bits (the sums take a fixed order, with no atomics), at 19x19
+    with 256 channels, with the skip and the conv bias and without."""
+    from elf_tpu_torch.models import epilogue as epi
+
+    tensors = _train_layer_inputs(dev, 64, 256, 19, torch.bfloat16, seed=5)
+    for skip in (False, True):
+        runs = [_train_layer_run(epi.train_epilogue_cuda, *tensors, skip,
+                                 skip) for _ in range(2)]
+        for name, a in runs[0].items():
+            b = runs[1][name]
+            assert (a is None) == (b is None), name
+            if a is not None:
+                bits = (torch.int16 if a.dtype == torch.bfloat16
+                        else torch.int32)
+                assert torch.equal(a.view(bits), b.view(bits)), (name, skip)
+
+
+@pytest.mark.parametrize("use_bf16", [False, True])
+def test_remat_step_with_train_epilogues_bit_for_bit(dev, use_bf16,
+                                                     monkeypatch):
+    """A net the training epilogues take (32 channels): three remat steps
+    from one state give the plain steps' parameters and BN statistics bit
+    for bit, with cuDNN's deterministic algorithms: the recomputed blocks'
+    kernels repeat the forward's bits."""
+    import copy
+    import dataclasses
+
+    from elf_tpu_torch.config import TrainOptions
+    from elf_tpu_torch.models import epilogue as epi
+    from elf_tpu_torch.models.resnet import ModelConfig
+    from elf_tpu_torch.training.trainer import Trainer
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    cfg = ModelConfig(board_size=9, num_block=2, dim=32, use_bf16=use_bf16)
+    opts = TrainOptions(batchsize=8, lr=0.05)
+    plain_tr = Trainer(cfg, opts, device=dev)
+    remat_tr = Trainer(dataclasses.replace(cfg, remat=True), opts, device=dev)
+    plain = plain_tr.init_state(torch.Generator().manual_seed(0))
+    remat = copy.deepcopy(plain)
+    remat.net.cfg = remat_tr.cfg
+    assert plain.net.takes_train_epilogues(torch.zeros(1, device=dev), True)
+    before = dict(epi.launches)
+    for i in range(3):
+        batch = [t.to(dev) for t in _train_batch(30 + i)]
+        plain_tr.make_train_step()(plain, *batch)
+        remat_tr.make_train_step()(remat, *batch)
+        for (n, x), (_, y) in zip(
+                list(plain.net.named_parameters())
+                + list(plain.net.named_buffers()),
+                list(remat.net.named_parameters())
+                + list(remat.net.named_buffers())):
+            assert torch.equal(x, y), (i, n)
+    # 5 trunk layers a forward, 4 more recomputed by remat; 5 backwards each
+    assert epi.launches["net_train_stats"] - before["net_train_stats"] == \
+        3 * (5 + 9)
+    assert epi.launches["net_train_grad"] - before["net_train_grad"] == \
+        3 * (5 + 5)
+
+
 NBT_MODES = [("normact", None), ("skip", None), ("row", None),
              ("pool", "gpool"), ("pool", "value")]
 
