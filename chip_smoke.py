@@ -8,17 +8,15 @@ Phases:
   2. build the CUDA kernels from `elf_tpu_torch/csrc/` with nvcc, and the
      host C code there (the game replayer, the ladder reader, the SGF
      codec);
-  3. kernels: both designs of each kernel (the union-find kernels the
-     engine launches and the first port's round-based ones, kept as the
-     yardstick) against the plain PyTorch version on the card (19x19 and
-     9x9, B in {1, 5, 32, 130, 4096}, random boards, the serpentine chain,
-     actions with passes, negatives and occupied points), exact; then at
-     the timed 19x19 shapes (mid-game boards at B = 1, 32, 1024 and 4096,
-     serpentine chains at B = 1024) checked again and timed in turns
-     (rounds, union-find, union-find, rounds): device time per launch by
-     CUDA-graph replay, the profiler's kernel time beside it, the host
-     cost of one wrapper call, the plain version's time and the byte
-     bound;
+  3. kernels: the engine's two union-find liberty kernels against the
+     plain PyTorch versions on the card (19x19 and 9x9, B in {1, 5, 32,
+     130, 4096}, random boards, the serpentine chain, actions with passes,
+     negatives and occupied points), exact; then at the timed 19x19
+     shapes (mid-game boards at B = 1, 32, 1024 and 4096, serpentine
+     chains at B = 1024) checked again and timed twice: device time per
+     launch by CUDA-graph replay, the profiler's kernel time beside it,
+     the host cost of one wrapper call, the plain version's time and the
+     byte bound;
  3b. epilogue: the serving trunk's epilogue kernel
      (`csrc/net_epilogue.cu`) against its plain version, bit for bit, at
      every trunk layer of the committed 19x19 20b256c and 13x13 10b128c
@@ -471,27 +469,6 @@ def played_boards(B: int, size: int, plies: int, seed: int):
     return core
 
 
-def designs():
-    """Both designs' wrappers and CUDA symbols: the union-find kernels the
-    engine launches, and the first port's round-based kernels, kept as the
-    yardstick they are timed against."""
-    from elf_tpu_torch.env.go import kernels
-
-    return {
-        "union-find": {
-            "analyze_libs": (kernels.analyze_libs_cuda, "analyze_libs_kernel"),
-            "step_analysis": (kernels.step_analysis_cuda,
-                              "step_analysis_kernel"),
-        },
-        "rounds": {
-            "analyze_libs": (kernels.analyze_libs_rounds_cuda,
-                             "analyze_libs_rounds_kernel"),
-            "step_analysis": (kernels.step_analysis_rounds_cuda,
-                              "step_analysis_rounds_kernel"),
-        },
-    }
-
-
 def bytes_moved(name: str, B: int, n2: int) -> int:
     """Each input read once, each output written once."""
     if name == "analyze_libs":
@@ -509,22 +486,23 @@ def kernel_phase(rng) -> dict:
 
     dev = torch.device("cuda")
     worst = {"analyze_libs": 0, "step_analysis": 0}
-    both = designs()
+    calls = {"analyze_libs": (kernels.analyze_libs_cuda,
+                              "analyze_libs_kernel"),
+             "step_analysis": (kernels.step_analysis_cuda,
+                               "step_analysis_kernel")}
     plain_of = {"analyze_libs": kernels.analyze_libs_ref,
                 "step_analysis": kernels.step_analysis_ref}
 
     def check(name, args, where):
-        """Every design of `name` equal to the plain version on `args`."""
+        """The kernel of `name` equal to the plain version on `args`."""
         plain = plain_of[name](*args)
-        for design, calls in both.items():
-            got = calls[name][0](*args)
-            torch.cuda.synchronize()
-            for g_, r_ in zip(got, plain):
-                if g_.dtype != r_.dtype or not torch.equal(g_, r_):
-                    fail(f"{name} ({design}) differs from the plain version "
-                         f"{where}")
-                worst[name] = max(worst[name],
-                                  int((g_.int() - r_.int()).abs().max()))
+        got = calls[name][0](*args)
+        torch.cuda.synchronize()
+        for g_, r_ in zip(got, plain):
+            if g_.dtype != r_.dtype or not torch.equal(g_, r_):
+                fail(f"{name} differs from the plain version {where}")
+            worst[name] = max(worst[name],
+                              int((g_.int() - r_.int()).abs().max()))
 
     for size in (9, 19):
         n2 = size * size
@@ -539,11 +517,10 @@ def kernel_phase(rng) -> dict:
                 rng.integers(1, 3, size=B).astype(np.int32)).to(dev)
             check("step_analysis", (s.reshape(B, n2).contiguous(), act, col),
                   f"at size {size} B {B}")
-            log(f"kernels: size {size} B {B}: both designs of both kernels "
-                "equal to their plain versions")
+            log(f"kernels: size {size} B {B}: both kernels equal to their "
+                "plain versions")
 
-    # the timed shapes: checked against the plain versions, then timed in
-    # turns (rounds, union-find, union-find, rounds) on this one card
+    # the timed shapes: checked against the plain versions, then timed twice
     size, n2 = 19, 361
     timings = {}
     for boards, B in TIMED:
@@ -566,39 +543,32 @@ def kernel_phase(rng) -> dict:
         for name in ("step_analysis", "analyze_libs"):
             a = args[name]
             check(name, a, where)
-            ms = {"rounds": [], "union-find": []}
-            for design in ("rounds", "union-find", "union-find", "rounds"):
-                fn = both[design][name][0]
-                ms[design].append(graph_ms(lambda: fn(*a), reps))
+            fn, symbol = calls[name]
+            turns = [graph_ms(lambda: fn(*a), reps) for _ in range(2)]
             plain = plain_of[name]
             nbytes = bytes_moved(name, B, n2)
             t = dict(boards=boards, B=B, bytes=nbytes,
                      bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                     plain_ms=cuda_time_ms(lambda: plain(*a), 3))
-            for design, (fn, symbol) in ((d, both[d][name]) for d in both):
-                t[design] = dict(
-                    ms=float(np.mean(ms[design])), ms_turns=ms[design],
-                    profiler_ms=profiler_ms(lambda: fn(*a), symbol, 50),
-                    host_ms=host_ms(lambda: fn(*a), 200))
+                     plain_ms=cuda_time_ms(lambda: plain(*a), 3),
+                     ms=float(np.mean(turns)), ms_turns=turns,
+                     profiler_ms=profiler_ms(lambda: fn(*a), symbol, 50),
+                     host_ms=host_ms(lambda: fn(*a), 200))
             timings[(name, boards, B)] = t
-            for design in ("union-find", "rounds"):
-                d = t[design]
-                prof = ("not found" if d["profiler_ms"] is None
-                        else f"{d['profiler_ms']:.6f} ms")
-                log(f"kernels: {name} 19x19 {boards} B {B}, {design}: device "
-                    f"{d['ms']:.6f} ms/launch (graph replay; turns "
-                    f"{', '.join(f'{x:.6f}' for x in d['ms_turns'])}), "
-                    f"profiler {prof}, host cost {d['host_ms']:.6f} ms/call, "
-                    f"bound {t['bound_ms']:.6f} ms (bytes), plain "
-                    f"{t['plain_ms']:.4f} ms")
+            prof = ("not found" if t["profiler_ms"] is None
+                    else f"{t['profiler_ms']:.6f} ms")
+            log(f"kernels: {name} 19x19 {boards} B {B}: device "
+                f"{t['ms']:.6f} ms/launch (graph replay; turns "
+                f"{', '.join(f'{x:.6f}' for x in turns)}), "
+                f"profiler {prof}, host cost {t['host_ms']:.6f} ms/call, "
+                f"bound {t['bound_ms']:.6f} ms (bytes), plain "
+                f"{t['plain_ms']:.4f} ms")
     ratios = {}
     for name in ("step_analysis", "analyze_libs"):
-        for design in ("union-find", "rounds"):
-            r = (timings[(name, "serpentine", 1024)][design]["ms"]
-                 / timings[(name, "mid-game", 1024)][design]["ms"])
-            ratios[f"{name}/{design}"] = r
-            log(f"kernels: {name}, {design}: serpentine / mid-game device "
-                f"time at B 1024 = {r:.3f}")
+        r = (timings[(name, "serpentine", 1024)]["ms"]
+             / timings[(name, "mid-game", 1024)]["ms"])
+        ratios[name] = r
+        log(f"kernels: {name}: serpentine / mid-game device time at B 1024 = "
+            f"{r:.3f}")
     return {"worst": worst, "timings": timings, "serpentine_ratio": ratios}
 
 
@@ -630,7 +600,6 @@ def epilogue_layers(frozen, x):
 
     from elf_tpu_torch.models.epilogue import epilogue_ref
 
-    muls = iter(frozen.serving_muls)
     h = x.permute(0, 3, 1, 2).to(frozen.cfg.compute_dtype,
                                   memory_format=torch.channels_last)
     seq = [(frozen.init_conv, frozen.init_bn, False)]
@@ -639,7 +608,7 @@ def epilogue_layers(frozen, x):
     block_in = None
     for conv, bn, skips in seq:
         args = dict(v=F.conv2d(h, conv.weight, None, padding=conv.padding),
-                    mean=bn.running_mean, mul=next(muls), bias=bn.bias,
+                    mean=bn.running_mean, mul=bn.serving_mul, bias=bn.bias,
                     skip=block_in if skips else None, conv_bias=conv.bias)
         yield args
         h = epilogue_ref(**args)
@@ -674,7 +643,7 @@ def epilogue_phase(card: str) -> dict:
         cfg = ModelConfig(board_size=size, num_block=blocks, dim=dim)
         net = load_model(str(ROOT / path), cfg, "cuda")
         nets[size] = (serving_copy(net), todays_serving_copy(net))
-        if nets[size][0].serving_muls is None:
+        if not nets[size][0].serves:
             fail(f"epilogue: the {size}x{size} serving copy has no serving "
                  "path")
     for size, B, plies in EPI_SHAPES:
@@ -1094,12 +1063,12 @@ def nbt_bytes(call: str, args: dict) -> int:
 def nbt_convs(net, x) -> list:
     """Each convolution of one forward of `net` on x, in call order:
     (module name, input, output)."""
-    from elf_tpu_torch.models import nbt
+    from elf_tpu_torch.models.resnet import Conv
 
     rec = []
     hooks = [m.register_forward_hook(
         lambda m, i, o, name=name: rec.append((name, i[0], o)))
-        for name, m in net.named_modules() if isinstance(m, nbt.Conv)]
+        for name, m in net.named_modules() if isinstance(m, Conv)]
     try:
         with torch.no_grad():
             net(x)
@@ -4704,7 +4673,7 @@ def main() -> int:
     result["parallel"] = parallel_phase(card)
     result["tools"] = tools_phase(card)
     result["bench"] = bench_phase(card, result["kernels"]["timings"][
-        ("step_analysis", "mid-game", 4096)]["union-find"]["ms"])
+        ("step_analysis", "mid-game", 4096)]["ms"])
     result["profile"] = profile_phase(card, net)
     result["prod13"] = prod13_phase(card)
 
@@ -4731,15 +4700,14 @@ def main() -> int:
             "launches_tools": result["tools"]["launches"][name],
             "launches_bench": result["bench"]["launches"][name],
             "launches_prod13": result["prod13"]["launches"][name],
-            "max_abs_err": k["worst"][name], "ms": t["union-find"]["ms"],
+            "max_abs_err": k["worst"][name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
             "shape": f"19x19 mid-game B={SLICE_B}",
-            "host_ms": t["union-find"]["host_ms"],
+            "host_ms": t["host_ms"],
             "by_shape": {
                 f"{boards} B={B}": {
-                    "ms": v["union-find"]["ms"], "rounds_ms": v["rounds"]["ms"],
-                    "host_ms": v["union-find"]["host_ms"],
+                    "ms": v["ms"], "host_ms": v["host_ms"],
                     "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"]}
                 for (n, boards, B), v in k["timings"].items() if n == name},
         })

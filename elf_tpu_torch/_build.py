@@ -4,9 +4,10 @@ a plain C interface, loaded through ctypes.
 
 A source `csrc/<name>.cu` or `csrc/<name>.c` becomes
 `build/kernels/<name>-<hash>.so` at the root of the checkout, at first
-use; the hash covers the source and the compiler flags, so an edited
-source rebuilds and an unchanged one loads what is already there.  Nothing
-is built when a module is imported, and a failed build raises.
+use; the hash (`source_hash`) covers the source, the headers under `csrc/`
+and the compiler flags, so an edited source or header rebuilds and an
+unchanged one loads what is already there.  Nothing is built when a module
+is imported, and a failed build raises.
 """
 
 from __future__ import annotations
@@ -51,6 +52,17 @@ def host_cc() -> str:
     raise RuntimeError("no host C compiler found (set CC)")
 
 
+def source_hash(src: Path, flags) -> str:
+    """The hash that names the library of `src`: the source, every header
+    beside it (`*.cuh`, `*.h`, by name and content) and the compiler
+    flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted([*src.parent.glob("*.cuh"), *src.parent.glob("*.h")]):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Tuple[Path, str]:
     """Build csrc/<name>.cu (nvcc) or csrc/<name>.c (host compiler) unless
     it is built already.  Returns the library's path and the compiler's
@@ -62,8 +74,7 @@ def build(name: str) -> Tuple[Path, str]:
     else:
         src = CSRC / f"{name}.c"
         compiler, flags = host_cc, CC_FLAGS
-    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
-    out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"{name}-{source_hash(src, flags)}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -62,13 +62,6 @@
 // self-play batch (B = 32, 32 CTAs on 132 SMs) a launch moves ~116 KB, far
 // below the fixed cost of a launch, and the time is that fixed cost plus
 // one CTA's chain of dependent steps, which this design keeps short.
-//
-// The first port's round-based design is kept below under the exported names
-// go_analyze_libs_rounds and go_step_analysis_rounds, as the yardstick the
-// union-find design is timed against: its fixpoint moves the min and max one
-// neighbour per round and ends each round on a block-wide __syncthreads_or,
-// so a chain costs as many rounds as its length along the chain (~N^2/2 for
-// a serpentine chain).  The engine never launches it.
 
 #include <climits>
 #include <cstdint>
@@ -78,10 +71,6 @@ namespace {
 
 constexpr int kInf = 1 << 20;
 constexpr int kCtaThreads = 384;
-
-// ---------------------------------------------------------------------------
-// union-find design
-// ---------------------------------------------------------------------------
 
 struct Board {
   int b;        // board index
@@ -304,161 +293,6 @@ __global__ void step_analysis_kernel(const int8_t* __restrict__ stones,
 }
 
 // ---------------------------------------------------------------------------
-// the first port's round-based design (yardstick only)
-// ---------------------------------------------------------------------------
-
-// Min (and, WITH_MAX, max) liberty fixpoint of one board held in shared
-// memory.  Every thread of the CTA calls it (it contains barriers);
-// `active` threads own point p of board `s`.  Returns the converged values
-// of point p in my_lm / my_lx.
-template <bool WITH_MAX>
-__device__ void liberty_fixpoint(const int8_t* s, int32_t* lm, int32_t* lx,
-                                 int p, int size, bool active,
-                                 int& my_lm, int& my_lx) {
-  my_lm = kInf;
-  my_lx = -1;
-  int nbr[4];
-  int nn = 0;
-  if (active) {
-    const int8_t me = s[p];
-    if (me != 0) {
-      const int r = p / size;
-      const int c = p - r * size;
-      int cand[4];
-      int nc = 0;
-      if (r > 0) cand[nc++] = p - size;
-      if (r < size - 1) cand[nc++] = p + size;
-      if (c > 0) cand[nc++] = p - 1;
-      if (c < size - 1) cand[nc++] = p + 1;
-      for (int i = 0; i < nc; ++i) {
-        const int q = cand[i];
-        const int8_t sq = s[q];
-        if (sq == 0) {
-          my_lm = min(my_lm, q);
-          my_lx = max(my_lx, q);
-        } else if (sq == me) {
-          nbr[nn++] = q;
-        }
-      }
-    }
-    lm[p] = my_lm;
-    if (WITH_MAX) lx[p] = my_lx;
-  }
-  __syncthreads();
-  while (true) {
-    bool changed = false;
-    for (int i = 0; i < nn; ++i) {
-      const int v = lm[nbr[i]];
-      if (v < my_lm) {
-        my_lm = v;
-        changed = true;
-      }
-      if (WITH_MAX) {
-        const int x = lx[nbr[i]];
-        if (x > my_lx) {
-          my_lx = x;
-          changed = true;
-        }
-      }
-    }
-    if (changed) {
-      lm[p] = my_lm;
-      if (WITH_MAX) lx[p] = my_lx;
-    }
-    if (!__syncthreads_or(changed)) break;
-  }
-}
-
-struct Slot {
-  int b;        // board index
-  int p;        // point index within the board
-  bool active;  // thread owns a real point of a real board
-  int32_t* lm;
-  int32_t* lx;
-  int8_t* s;
-};
-
-// Shared-memory layout: lm[bpc * tpb] | lx[bpc * tpb] | s[bpc * tpb] (int8).
-__device__ Slot make_slot(int32_t* smem, int B, int n2, int tpb) {
-  const int bpc = blockDim.x / tpb;
-  const int slot = threadIdx.x / tpb;
-  Slot t;
-  t.p = threadIdx.x - slot * tpb;
-  t.b = blockIdx.x * bpc + slot;
-  t.active = t.b < B && t.p < n2;
-  t.lm = smem + slot * tpb;
-  t.lx = smem + bpc * tpb + slot * tpb;
-  t.s = reinterpret_cast<int8_t*>(smem + 2 * bpc * tpb) + slot * tpb;
-  return t;
-}
-
-__global__ void analyze_libs_rounds_kernel(const int8_t* __restrict__ stones,
-                                           int32_t* __restrict__ lm_out,
-                                           int32_t* __restrict__ lx_out,
-                                           int B, int size, int tpb) {
-  extern __shared__ int32_t smem[];
-  const int n2 = size * size;
-  Slot t = make_slot(smem, B, n2, tpb);
-  const size_t g = static_cast<size_t>(t.b) * n2 + t.p;
-  if (t.active) t.s[t.p] = stones[g];
-  __syncthreads();
-  int my_lm, my_lx;
-  liberty_fixpoint<true>(t.s, t.lm, t.lx, t.p, size, t.active, my_lm, my_lx);
-  if (t.active) {
-    lm_out[g] = my_lm;
-    lx_out[g] = my_lx;
-  }
-}
-
-__global__ void step_analysis_rounds_kernel(const int8_t* __restrict__ stones,
-                                            const int32_t* __restrict__ action,
-                                            const int32_t* __restrict__ color,
-                                            int8_t* __restrict__ s2_out,
-                                            int32_t* __restrict__ lm_out,
-                                            int32_t* __restrict__ lx_out,
-                                            uint8_t* __restrict__ cap_out,
-                                            int B, int size, int tpb) {
-  extern __shared__ int32_t smem[];
-  const int n2 = size * size;
-  Slot t = make_slot(smem, B, n2, tpb);
-  const size_t g = static_cast<size_t>(t.b) * n2 + t.p;
-  const int a = t.b < B ? action[t.b] : -1;
-  const int col = t.b < B ? color[t.b] : 1;
-
-  // 1. tentative placement (p < n2 here, so a pass or negative action
-  //    never matches; an occupied point is overwritten)
-  int8_t v = 0;
-  if (t.active) {
-    v = stones[g];
-    if (t.p == a) v = static_cast<int8_t>(col);
-    t.s[t.p] = v;
-  }
-  __syncthreads();
-
-  // 2. min-only fixpoint: a chain without liberties keeps lib_min == INF
-  int my_lm, my_lx;
-  liberty_fixpoint<false>(t.s, t.lm, t.lx, t.p, size, t.active, my_lm, my_lx);
-
-  // 3. remove zero-liberty opponent chains (the fixpoint ended on a
-  //    barrier, so no thread still reads the pre-capture board)
-  const bool cap = t.active && my_lm == kInf && v == 3 - col;
-  if (cap) {
-    v = 0;
-    t.s[t.p] = 0;
-  }
-  __syncthreads();
-
-  // 4. full min/max fixpoint on the post-capture board
-  liberty_fixpoint<true>(t.s, t.lm, t.lx, t.p, size, t.active, my_lm, my_lx);
-  if (t.active) {
-    s2_out[g] = v;
-    lm_out[g] = my_lm;
-    lx_out[g] = my_lx;
-    cap_out[g] = cap ? 1 : 0;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -466,7 +300,6 @@ struct Launch {
   dim3 grid;
   dim3 block;
   size_t smem;
-  int tpb;  // round-based design: threads of one board
 };
 
 // Union-find: a (size, size, boards) block; `words` int32 shared arrays per
@@ -480,20 +313,6 @@ Launch union_find_shape(int B, int size, int words) {
   l.grid = dim3((B + bpc - 1) / bpc);
   l.block = dim3(size, size, bpc);
   l.smem = static_cast<size_t>(bpc) * n2 * (4 * words + 1);
-  l.tpb = 0;
-  return l;
-}
-
-// Round-based: a board's threads padded to whole warps, boards side by side.
-Launch rounds_shape(int B, int size) {
-  const int n2 = size * size;
-  Launch l;
-  l.tpb = (n2 + 31) / 32 * 32;
-  int bpc = kCtaThreads / l.tpb;
-  if (bpc < 1) bpc = 1;
-  l.grid = dim3((B + bpc - 1) / bpc);
-  l.block = dim3(bpc * l.tpb);
-  l.smem = static_cast<size_t>(bpc) * l.tpb * (4 + 4 + 1);
   return l;
 }
 
@@ -525,29 +344,5 @@ extern "C" int go_step_analysis(const void* stones, const void* action,
       static_cast<const int32_t*>(color), static_cast<int8_t*>(s2),
       static_cast<int32_t*>(lm), static_cast<int32_t*>(lx),
       static_cast<uint8_t*>(cap), B, size);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int go_analyze_libs_rounds(const void* stones, void* lm, void* lx,
-                                      int B, int size, void* stream) {
-  const Launch l = rounds_shape(B, size);
-  analyze_libs_rounds_kernel<<<l.grid, l.block, l.smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(stones), static_cast<int32_t*>(lm),
-      static_cast<int32_t*>(lx), B, size, l.tpb);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int go_step_analysis_rounds(const void* stones, const void* action,
-                                       const void* color, void* s2, void* lm,
-                                       void* lx, void* cap, int B, int size,
-                                       void* stream) {
-  const Launch l = rounds_shape(B, size);
-  step_analysis_rounds_kernel<<<l.grid, l.block, l.smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(stones), static_cast<const int32_t*>(action),
-      static_cast<const int32_t*>(color), static_cast<int8_t*>(s2),
-      static_cast<int32_t*>(lm), static_cast<int32_t*>(lx),
-      static_cast<uint8_t*>(cap), B, size, l.tpb);
   return static_cast<int>(cudaGetLastError());
 }

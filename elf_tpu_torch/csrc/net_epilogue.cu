@@ -37,34 +37,13 @@
 //     outstanding to cover the memory latency;
 //   - launched on the caller's stream; no allocation, no synchronisation.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <climits>
-#include <cstdint>
+
+#include "lanes.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// torch.relu on the card: clamp_min(v, 0) = isnan(v) ? v : max(v, 0)
-__device__ __forceinline__ float relu(float v) {
-  return isnan(v) ? v : fmaxf(v, 0.0f);
-}
 
 template <typename T, bool kBias, bool kSkip>
 __device__ __forceinline__ uint4 pass(uint4 rv, uint4 rx, const float* cb,
@@ -138,24 +117,9 @@ int launch(const void* v, const void* conv_bias, const float* mean,
   const int groups = C / L;
   const int rows = kThreads / groups;
   auto kernel = epilogue_kernel<T, kBias, kSkip>;
-  // one wave of blocks: as many as stay resident on every SM at once,
-  // found once per block shape
-  static int waves[kThreads + 1] = {};
-  int& wave = waves[groups];
-  if (wave == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        groups * rows, 0);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    wave = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  const long long want = (pixels + rows - 1) / rows;
-  const int grid = static_cast<int>(want < wave ? want : wave);
-  kernel<<<grid, dim3(groups, rows), 0, stream>>>(
+  const int w = wave<epilogue_kernel<T, kBias, kSkip>>(groups, rows);
+  if (w < 0) return -w;
+  kernel<<<grid_of(pixels, rows, w), dim3(groups, rows), 0, stream>>>(
       static_cast<const T*>(v), static_cast<const T*>(conv_bias), mean, mul,
       bias, static_cast<const T*>(skip), static_cast<T*>(out), pixels, C);
   return static_cast<int>(cudaGetLastError());
@@ -189,7 +153,7 @@ extern "C" int net_epilogue(const void* v, const void* conv_bias,
                             const void* bias, const void* skip, void* out,
                             long long pixels, int C, int dtype,
                             void* stream) {
-  const int lanes = dtype == 0 ? 8 : dtype == 1 ? 4 : 0;
+  const int lanes = lanes_of(dtype);
   if (lanes == 0 || C <= 0 || C % lanes != 0 || C / lanes > kThreads ||
       pixels < 0 || pixels > LLONG_MAX / C)
     return static_cast<int>(cudaErrorInvalidValue);

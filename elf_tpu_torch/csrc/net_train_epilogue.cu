@@ -57,31 +57,15 @@
 //     other; the finishing launches are 32 channels x 8 rows a block;
 //   - launched on the caller's stream; no allocation, no synchronisation.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <climits>
-#include <cstdint>
+
+#include "lanes.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;   // the most threads of a pass's block
 constexpr int kFinishX = 32;    // a finishing block: 32 channels ...
 constexpr int kFinishY = 8;     // ... x 8 rows of partials
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // torch's ReLU backward passes the gradient unless the output is <= 0
 __device__ __forceinline__ bool passes(float out) { return !(out <= 0.0f); }
@@ -416,33 +400,9 @@ Shape shape_of(int C) {
   return {groups, kThreads / groups};
 }
 
-// One wave of blocks of `kKernel` in the block shape `sh`: as many as stay
-// resident on every SM at once, found once per kernel and shape; a negative
-// CUDA error on failure.  It sizes each launch's grid and, through
-// `capacity`, the partials buffer.
-template <auto kKernel>
-int wave(const Shape& sh) {
-  static int waves[kThreads + 1] = {};
-  int& w = waves[sh.groups];
-  if (w == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kKernel, sh.groups * sh.rows, 0);
-    if (e != cudaSuccess) return -static_cast<int>(e);
-    w = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  return w;
-}
-
 int blocks(long long pixels, int rows, int wave, int capacity) {
-  long long want = (pixels + rows - 1) / rows;
-  if (want > wave) want = wave;
-  if (want > capacity) want = capacity;
-  return static_cast<int>(want);
+  const int grid = grid_of(pixels, rows, wave);
+  return grid < capacity ? grid : capacity;
 }
 
 int finish_grid(int C) { return (C + kFinishX - 1) / kFinishX; }
@@ -461,7 +421,7 @@ struct StatsArgs {
 template <typename T, bool kBias>
 int stats(const StatsArgs& a, cudaStream_t stream) {
   const Shape sh = shape_of<T>(a.C);
-  const int w = wave<stats_kernel<T, kBias>>(sh);
+  const int w = wave<stats_kernel<T, kBias>>(sh.groups, sh.rows);
   if (w < 0) return -w;
   const int grid = blocks(a.pixels, sh.rows, w, a.capacity);
   stats_kernel<T, kBias><<<grid, dim3(sh.groups, sh.rows), 0, stream>>>(
@@ -503,9 +463,9 @@ int grad(const GradArgs& a, cudaStream_t stream) {
   const auto* g = static_cast<const T*>(a.g);
   auto reduce = grad_reduce<T, kBias, kSkip>;
   auto apply = grad_apply<T, kBias, kSkip>;
-  const int w0 = wave<grad_reduce<T, kBias, kSkip>>(sh);
+  const int w0 = wave<grad_reduce<T, kBias, kSkip>>(sh.groups, sh.rows);
   if (w0 < 0) return -w0;
-  const int w1 = wave<grad_apply<T, kBias, kSkip>>(sh);
+  const int w1 = wave<grad_apply<T, kBias, kSkip>>(sh.groups, sh.rows);
   if (w1 < 0) return -w1;
   const double n = static_cast<double>(a.pixels);
   const int g0 = blocks(a.pixels, sh.rows, w0, a.capacity);
@@ -542,16 +502,17 @@ int grad_dispatch(const GradArgs& a, cudaStream_t s) {
 template <typename T>
 int capacity(int C) {
   const Shape sh = shape_of<T>(C);
-  const int waves[] = {wave<stats_kernel<T, false>>(sh),
-                       wave<stats_kernel<T, true>>(sh),
-                       wave<grad_reduce<T, false, false>>(sh),
-                       wave<grad_reduce<T, false, true>>(sh),
-                       wave<grad_reduce<T, true, false>>(sh),
-                       wave<grad_reduce<T, true, true>>(sh),
-                       wave<grad_apply<T, false, false>>(sh),
-                       wave<grad_apply<T, false, true>>(sh),
-                       wave<grad_apply<T, true, false>>(sh),
-                       wave<grad_apply<T, true, true>>(sh)};
+  const int g = sh.groups, r = sh.rows;
+  const int waves[] = {wave<stats_kernel<T, false>>(g, r),
+                       wave<stats_kernel<T, true>>(g, r),
+                       wave<grad_reduce<T, false, false>>(g, r),
+                       wave<grad_reduce<T, false, true>>(g, r),
+                       wave<grad_reduce<T, true, false>>(g, r),
+                       wave<grad_reduce<T, true, true>>(g, r),
+                       wave<grad_apply<T, false, false>>(g, r),
+                       wave<grad_apply<T, false, true>>(g, r),
+                       wave<grad_apply<T, true, false>>(g, r),
+                       wave<grad_apply<T, true, true>>(g, r)};
   int most = 0;
   for (int w : waves) {
     if (w < 0) return w;
@@ -561,7 +522,7 @@ int capacity(int C) {
 }
 
 bool valid(long long pixels, int C, int dtype) {
-  const int lanes = dtype == 0 ? 8 : dtype == 1 ? 4 : 0;
+  const int lanes = lanes_of(dtype);
   return lanes != 0 && C > 0 && C % lanes == 0 && C / lanes <= kThreads &&
          pixels > 0 && pixels <= LLONG_MAX / C;
 }

@@ -97,6 +97,54 @@ BN_EPS = 1e-5
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# Each library's C functions and their argument types (each returns an int:
+# 0, or a CUDA error), the stream last where the function launches.  Each
+# library is built and loaded the first time one of its functions is called.
+_SIGNATURES = {
+    "net_epilogue": {"net_epilogue": [_VP] * 7 + [_LL, _I, _I, _VP]},
+    "net_train_epilogue": {
+        "net_train_capacity": [_I, _I],
+        "net_train_stats": [_VP] * 4 + [_I] + [_VP] * 4
+        + [_LL, _I, _I, ctypes.c_double, _VP],
+        "net_train_grad": [_VP] * 12 + [_I] + [_VP] * 5
+        + [_LL, _I, _I, ctypes.c_double, _VP],
+    },
+    "nbt_epilogue": {
+        "nbt_normact": [_VP] * 8 + [_LL, _I, _I, _I, _I, _VP],
+        "nbt_pool": [_VP] * 5 + [_I, _I, _I] + [ctypes.c_float] * 3
+        + [_I, _I, _I, _VP],
+    },
+}
+_fns: dict = {}
+
+
+def _fn(name: str):
+    """The C function `name`, its library built and loaded first if need
+    be."""
+    if name not in _fns:
+        from elf_tpu_torch import _build
+
+        lib_name = next(k for k, fns in _SIGNATURES.items() if name in fns)
+        lib = _build.load(lib_name)
+        for fn, argtypes in _SIGNATURES[lib_name].items():
+            _fns[fn] = getattr(lib, fn)
+            _fns[fn].argtypes, _fns[fn].restype = argtypes, _I
+    return _fns[name]
+
+
+def _launch(name: str, v: torch.Tensor, *args) -> None:
+    """Call the C function `name` on `args` and the current stream of v's
+    card, raise on its CUDA error and count the launch."""
+    rc = _fn(name)(*args, torch.cuda.current_stream(v.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+    launches[name] += 1
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
 
 def epilogue_ref(v: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
                  bias: torch.Tensor, skip: Optional[torch.Tensor] = None,
@@ -111,24 +159,6 @@ def epilogue_ref(v: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
     if skip is None:
         return y
     return F.relu(skip + y)
-
-
-_lib = None
-
-
-def _kernel():
-    global _lib
-    if _lib is None:
-        from elf_tpu_torch import _build
-
-        lib = _build.load("net_epilogue")
-        vp = ctypes.c_void_p
-        lib.net_epilogue.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                     ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int, vp]
-        lib.net_epilogue.restype = ctypes.c_int
-        _lib = lib
-    return _lib
 
 
 def _check_layout(t: torch.Tensor, name: str) -> None:
@@ -155,7 +185,9 @@ def _check_v(v: torch.Tensor) -> tuple:
     return B, C, H, W
 
 
-def _check_skip(skip: torch.Tensor, v: torch.Tensor) -> None:
+def _check_skip(skip: Optional[torch.Tensor], v: torch.Tensor) -> None:
+    if skip is None:
+        return
     if (skip.device, skip.dtype, skip.shape) != (v.device, v.dtype, v.shape):
         raise ValueError(f"skip: expected {v.dtype} {tuple(v.shape)} on "
                          f"{v.device}, got {skip.dtype} {tuple(skip.shape)} "
@@ -163,13 +195,17 @@ def _check_skip(skip: torch.Tensor, v: torch.Tensor) -> None:
     _check_layout(skip, "skip")
 
 
-def _check_channel(t: torch.Tensor, name: str, dtype: torch.dtype, C: int,
-                   device) -> None:
-    if t.device != device or t.dtype != dtype or t.shape != (C,) \
-            or not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous {dtype} [{C}] on "
-                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
-                         f"{t.device}")
+def _check_channels(v: torch.Tensor, dtype: torch.dtype,
+                    **vectors: Optional[torch.Tensor]) -> None:
+    """Each of `vectors` that is given: a contiguous `dtype` [C] on v's
+    device, C v's channels."""
+    C = v.shape[1]
+    for name, t in vectors.items():
+        if t is not None and (t.device != v.device or t.dtype != dtype
+                              or t.shape != (C,) or not t.is_contiguous()):
+            raise ValueError(f"{name}: expected a contiguous {dtype} [{C}] "
+                             f"on {v.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
 
 
 def epilogue_cuda(v: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
@@ -179,24 +215,14 @@ def epilogue_cuda(v: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
     multiple of 16 bytes' lanes; the rest as `epilogue_ref`.  Returns a new
     channels_last tensor like v."""
     B, C, H, W = _check_v(v)
-    for t, name in ((mean, "mean"), (mul, "mul"), (bias, "bias")):
-        _check_channel(t, name, torch.float32, C, v.device)
-    if conv_bias is not None:
-        _check_channel(conv_bias, "conv_bias", v.dtype, C, v.device)
-    if skip is not None:
-        _check_skip(skip, v)
+    _check_channels(v, torch.float32, mean=mean, mul=mul, bias=bias)
+    _check_channels(v, v.dtype, conv_bias=conv_bias)
+    _check_skip(skip, v)
     out = torch.empty_like(v, memory_format=torch.channels_last)
-    if v.numel() == 0:
-        return out
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    rc = _kernel().net_epilogue(
-        v.data_ptr(), None if conv_bias is None else conv_bias.data_ptr(),
-        mean.data_ptr(), mul.data_ptr(), bias.data_ptr(),
-        None if skip is None else skip.data_ptr(), out.data_ptr(),
-        B * H * W, C, _DTYPES[v.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"net_epilogue: CUDA error {rc} at launch")
-    launches["net_epilogue"] += 1
+    if v.numel():
+        _launch("net_epilogue", v, v.data_ptr(), _ptr(conv_bias),
+                mean.data_ptr(), mul.data_ptr(), bias.data_ptr(), _ptr(skip),
+                out.data_ptr(), B * H * W, C, _DTYPES[v.dtype])
     return out
 
 
@@ -231,27 +257,7 @@ def train_epilogue_ref(v: torch.Tensor, weight: torch.Tensor,
     return (y if skip is None else F.relu(skip + y)), mean, var
 
 
-_train_lib = None
 _capacity: dict = {}
-
-
-def _train_kernel():
-    global _train_lib
-    if _train_lib is None:
-        from elf_tpu_torch import _build
-
-        lib = _build.load("net_train_epilogue")
-        vp, i, ll, d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                        ctypes.c_double)
-        lib.net_train_capacity.argtypes = [i, i]
-        lib.net_train_stats.argtypes = [vp, vp, vp, vp, i, vp, vp, vp, vp,
-                                        ll, i, i, d, vp]
-        lib.net_train_grad.argtypes = [vp] * 12 + [i] + [vp] * 5 + [ll, i, i,
-                                                                   d, vp]
-        lib.net_train_capacity.restype = lib.net_train_stats.restype = i
-        lib.net_train_grad.restype = i
-        _train_lib = lib
-    return _train_lib
 
 
 def _partials(v: torch.Tensor) -> tuple:
@@ -261,16 +267,12 @@ def _partials(v: torch.Tensor) -> tuple:
     key = (v.device, C, v.dtype)
     if key not in _capacity:
         with torch.cuda.device(v.device):
-            n = _train_kernel().net_train_capacity(C, _DTYPES[v.dtype])
+            n = _fn("net_train_capacity")(C, _DTYPES[v.dtype])
         if n <= 0:
             raise RuntimeError(f"net_train_capacity: CUDA error {-n}")
         _capacity[key] = n
     n = _capacity[key]
     return torch.empty((n, 2, C), dtype=torch.float32, device=v.device), n
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
 
 
 def train_stats_cuda(v: torch.Tensor, weight: torch.Tensor,
@@ -283,14 +285,10 @@ def train_stats_cuda(v: torch.Tensor, weight: torch.Tensor,
     mean, var, mul, gate = (torch.empty(C, dtype=torch.float32,
                                         device=v.device) for _ in range(4))
     scratch, capacity = _partials(v)
-    rc = _train_kernel().net_train_stats(
-        v.data_ptr(), _ptr(conv_bias), weight.data_ptr(), scratch.data_ptr(),
-        capacity, mean.data_ptr(), var.data_ptr(), mul.data_ptr(),
-        gate.data_ptr(), B * H * W, C, _DTYPES[v.dtype], BN_EPS,
-        torch.cuda.current_stream(v.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"net_train_stats: CUDA error {rc} at launch")
-    launches["net_train_stats"] += 1
+    _launch("net_train_stats", v, v.data_ptr(), _ptr(conv_bias),
+            weight.data_ptr(), scratch.data_ptr(), capacity, mean.data_ptr(),
+            var.data_ptr(), mul.data_ptr(), gate.data_ptr(), B * H * W, C,
+            _DTYPES[v.dtype], BN_EPS)
     return mean, var, mul, gate
 
 
@@ -309,16 +307,12 @@ def train_grad_cuda(v: torch.Tensor, conv_bias: Optional[torch.Tensor],
         C, dtype=torch.float32, device=v.device) for _ in range(4))
     dcb = None if conv_bias is None else torch.empty_like(dbias)
     scratch, capacity = _partials(v)
-    rc = _train_kernel().net_train_grad(
-        v.data_ptr(), _ptr(conv_bias), mean.data_ptr(), var.data_ptr(),
-        mul.data_ptr(), gate.data_ptr(), bias.data_ptr(), _ptr(out),
-        g.data_ptr(), dv.data_ptr(), _ptr(dskip), scratch.data_ptr(),
-        capacity, coef1.data_ptr(), coef2.data_ptr(), dweight.data_ptr(),
-        dbias.data_ptr(), _ptr(dcb), B * H * W, C, _DTYPES[v.dtype], BN_EPS,
-        torch.cuda.current_stream(v.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"net_train_grad: CUDA error {rc} at launch")
-    launches["net_train_grad"] += 1
+    _launch("net_train_grad", v, v.data_ptr(), _ptr(conv_bias),
+            mean.data_ptr(), var.data_ptr(), mul.data_ptr(), gate.data_ptr(),
+            bias.data_ptr(), _ptr(out), g.data_ptr(), dv.data_ptr(),
+            _ptr(dskip), scratch.data_ptr(), capacity, coef1.data_ptr(),
+            coef2.data_ptr(), dweight.data_ptr(), dbias.data_ptr(), _ptr(dcb),
+            B * H * W, C, _DTYPES[v.dtype], BN_EPS)
     return dv, dskip, dweight, dbias, dcb
 
 
@@ -357,14 +351,11 @@ def train_epilogue_cuda(v: torch.Tensor, weight: torch.Tensor,
     one pixel; the rest as `train_epilogue_ref`.  Returns (y, mean, var), y
     a new channels_last tensor like v."""
     B, C, H, W = _check_v(v)
+    _check_channels(v, torch.float32, weight=weight, bias=bias,
+                    conv_bias=conv_bias)
+    _check_skip(skip, v)
     if B * H * W == 0:
         raise ValueError("v: the batch statistics need at least one pixel")
-    for t, name in ((weight, "weight"), (bias, "bias")):
-        _check_channel(t, name, torch.float32, C, v.device)
-    if conv_bias is not None:
-        _check_channel(conv_bias, "conv_bias", torch.float32, C, v.device)
-    if skip is not None:
-        _check_skip(skip, v)
     return _TrainEpilogue.apply(v, conv_bias, weight, bias, skip)
 
 
@@ -459,34 +450,6 @@ def pool_ref(v: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
     return board_pool(activation(act)(y + bias[:, None, None]), kind)
 
 
-_nbt_lib = None
-
-
-def _nbt_kernel():
-    global _nbt_lib
-    if _nbt_lib is None:
-        from elf_tpu_torch import _build
-
-        lib = _build.load("nbt_epilogue")
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.nbt_normact.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                    ctypes.c_longlong, i, i, i, i, vp]
-        lib.nbt_pool.argtypes = [vp, vp, vp, vp, vp, i, i, i, ctypes.c_float,
-                                 ctypes.c_float, ctypes.c_float, i, i, i, vp]
-        lib.nbt_normact.restype = lib.nbt_pool.restype = i
-        _nbt_lib = lib
-    return _nbt_lib
-
-
-def _check_input(v: torch.Tensor, mean, mul, bias, act: str) -> tuple:
-    """The checks both kernels make; returns (B, C, H, W)."""
-    B, C, H, W = _check_v(v)
-    for t, name in ((mean, "mean"), (mul, "mul"), (bias, "bias")):
-        _check_channel(t, name, torch.float32, C, v.device)
-    activation(act)
-    return B, C, H, W
-
-
 def normact_cuda(v: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
                  bias: torch.Tensor, act: str,
                  skip: Optional[torch.Tensor] = None,
@@ -494,11 +457,12 @@ def normact_cuda(v: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
     """The CUDA kernel of `normact_ref`: v channels_last, bf16 or fp32, C a
     multiple of 16 bytes' lanes; skip and rowbias not both.  Returns new
     channels_last tensors like v."""
-    B, C, H, W = _check_input(v, mean, mul, bias, act)
+    B, C, H, W = _check_v(v)
+    _check_channels(v, torch.float32, mean=mean, mul=mul, bias=bias)
+    activation(act)
     if skip is not None and rowbias is not None:
         raise ValueError("normact: a skip and a row bias together")
-    if skip is not None:
-        _check_skip(skip, v)
+    _check_skip(skip, v)
     if rowbias is not None and B * H * W >= 2**31:
         raise ValueError(f"v: {B * H * W} pixels; with a row bias the "
                          "kernel takes fewer than 2^31")
@@ -514,15 +478,10 @@ def normact_cuda(v: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
     s = None if skip is None else torch.empty_like(
         v, memory_format=torch.channels_last)
     if v.numel():
-        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        rc = _nbt_kernel().nbt_normact(
-            v.data_ptr(), ptr(skip), ptr(rowbias), mean.data_ptr(),
-            mul.data_ptr(), bias.data_ptr(), ptr(s), y.data_ptr(), B * H * W,
-            H * W, C, _DTYPES[v.dtype], ACTS[act],
-            torch.cuda.current_stream(v.device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"nbt_normact: CUDA error {rc} at launch")
-        launches["nbt_normact"] += 1
+        _launch("nbt_normact", v, v.data_ptr(), _ptr(skip), _ptr(rowbias),
+                mean.data_ptr(), mul.data_ptr(), bias.data_ptr(), _ptr(s),
+                y.data_ptr(), B * H * W, H * W, C, _DTYPES[v.dtype],
+                ACTS[act])
     return y if skip is None else (s, y)
 
 
@@ -531,7 +490,9 @@ def pool_cuda(v: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
     """The CUDA kernel of `pool_ref`: v channels_last, bf16 or fp32, C a
     multiple of 16 bytes' lanes, at most 512 8-byte vectors, and 8 H C
     bytes of shared memory at most 227 KB."""
-    B, C, H, W = _check_input(v, mean, mul, bias, act)
+    B, C, H, W = _check_v(v)
+    _check_channels(v, torch.float32, mean=mean, mul=mul, bias=bias)
+    activation(act)
     if kind not in POOLS:
         raise ValueError(f"kind {kind!r}: expected one of {sorted(POOLS)}")
     if C // (8 // v.element_size()) > 512 or 8 * H * C > 232448:
@@ -540,14 +501,9 @@ def pool_cuda(v: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
     out = torch.empty((B, 3 * C), dtype=torch.float32, device=v.device)
     if v.numel():
         inv, k1, k2 = pool_scales(H * W)
-        rc = _nbt_kernel().nbt_pool(
-            v.data_ptr(), mean.data_ptr(), mul.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, H, W, inv, k1, k2, C, _DTYPES[v.dtype],
-            (ACTS[act] << 1) | POOLS[kind],
-            torch.cuda.current_stream(v.device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"nbt_pool: CUDA error {rc} at launch")
-        launches["nbt_pool"] += 1
+        _launch("nbt_pool", v, v.data_ptr(), mean.data_ptr(), mul.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), B, H, W, inv, k1, k2, C,
+                _DTYPES[v.dtype], (ACTS[act] << 1) | POOLS[kind])
     return out
 
 

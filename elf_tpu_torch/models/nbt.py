@@ -36,7 +36,7 @@ affine, as KataGo's exported nets reduce theirs to a scale and a bias.
 The net has no training forward (`net(x, train=True)` raises).
 
 The serving path (`NestedBottleneckNet.serve`).  A serving copy
-(`resnet.serving_copy`) whose channels are multiples of 8 holds each
+(`resnet.prepare_serving`) whose channels are multiples of 8 holds each
 norm's `rsqrt(running_var + eps) * weight` (`serving_mul`).  On a CUDA
 input it keeps every activation NHWC (`torch.channels_last`) from the
 first convolution to the heads, and follows each convolution but the
@@ -65,7 +65,8 @@ from elf_tpu_torch import profiling
 from elf_tpu_torch.device import DeviceLike, resolve_device
 from elf_tpu_torch.models.epilogue import (activation, board_pool, normact,
                                            pool)
-from elf_tpu_torch.models.resnet import BN_EPS, BatchNorm, init_weights
+from elf_tpu_torch.models.resnet import (BatchNorm, Conv, ServingNet,
+                                         init_weights)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,21 +98,6 @@ class NbtConfig:
         return torch.bfloat16 if self.use_bf16 else torch.float32
 
 
-class Conv(nn.Module):
-    """k x k "same" convolution without bias, fp32 master weight, computed
-    in `dtype`."""
-
-    def __init__(self, cin: int, cout: int, k: int, dtype: torch.dtype):
-        super().__init__()
-        self.dtype = dtype
-        self.padding = k // 2
-        self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight.to(self.dtype), None,
-                        padding=self.padding)
-
-
 def _k(norm: BatchNorm) -> tuple:
     """A serving copy's epilogue constants of `norm`: mean, mul, bias."""
     return norm.running_mean, norm.serving_mul, norm.bias
@@ -123,7 +109,7 @@ class NormActConv(nn.Module):
     def __init__(self, cin: int, cout: int, k: int, dtype: torch.dtype):
         super().__init__()
         self.norm = BatchNorm(cin)
-        self.conv = Conv(cin, cout, k, dtype)
+        self.conv = Conv(cin, cout, k, dtype, bias=False)
 
     def forward(self, h: torch.Tensor, act) -> torch.Tensor:
         return self.conv(act(self.norm(h)).to(self.conv.dtype))
@@ -157,12 +143,12 @@ class GPoolResBlock(nn.Module):
     def __init__(self, c: int, c_gpool: int, dtype: torch.dtype):
         super().__init__()
         self.norm1 = BatchNorm(c)
-        self.conv1r = Conv(c, c - c_gpool, 3, dtype)
-        self.conv1g = Conv(c, c_gpool, 3, dtype)
+        self.conv1r = Conv(c, c - c_gpool, 3, dtype, bias=False)
+        self.conv1g = Conv(c, c_gpool, 3, dtype, bias=False)
         self.normg = BatchNorm(c_gpool)
         self.linear_g = nn.Linear(3 * c_gpool, c - c_gpool, bias=False)
         self.norm2 = BatchNorm(c - c_gpool)
-        self.conv2 = Conv(c - c_gpool, c, 3, dtype)
+        self.conv2 = Conv(c - c_gpool, c, 3, dtype, bias=False)
 
     @property
     def first_norm(self) -> BatchNorm:
@@ -217,12 +203,12 @@ class PolicyHead(nn.Module):
         super().__init__()
         dt, c, p1, g1 = (cfg.compute_dtype, cfg.trunk_channels,
                          cfg.p1_channels, cfg.g1_channels)
-        self.conv1p = Conv(c, p1, 1, dt)
-        self.conv1g = Conv(c, g1, 1, dt)
+        self.conv1p = Conv(c, p1, 1, dt, bias=False)
+        self.conv1g = Conv(c, g1, 1, dt, bias=False)
         self.normg = BatchNorm(g1)
         self.linear_g = nn.Linear(3 * g1, p1, bias=False)
         self.norm2 = BatchNorm(p1)
-        self.conv2p = Conv(p1, 1, 1, dt)
+        self.conv2p = Conv(p1, 1, 1, dt, bias=False)
         self.linear_pass = nn.Linear(3 * g1, 1)
 
     def forward(self, h: torch.Tensor, act) -> torch.Tensor:
@@ -245,7 +231,8 @@ class ValueHead(nn.Module):
     def __init__(self, cfg: NbtConfig):
         super().__init__()
         v1 = cfg.v1_channels
-        self.conv1 = Conv(cfg.trunk_channels, v1, 1, cfg.compute_dtype)
+        self.conv1 = Conv(cfg.trunk_channels, v1, 1, cfg.compute_dtype,
+                          bias=False)
         self.norm1 = BatchNorm(v1)
         self.linear2 = nn.Linear(3 * v1, cfg.v2_size)
         self.linear3 = nn.Linear(cfg.v2_size, 3)
@@ -263,25 +250,19 @@ class ValueHead(nn.Module):
         return p[:, 0] - p[:, 1]
 
 
-class NestedBottleneckNet(nn.Module):
+class NestedBottleneckNet(ServingNet):
     def __init__(self, cfg: NbtConfig):
         super().__init__()
         self.cfg = cfg
         self.conv_spatial = Conv(cfg.num_planes, cfg.trunk_channels,
-                                 cfg.input_kernel, cfg.compute_dtype)
+                                 cfg.input_kernel, cfg.compute_dtype,
+                                 bias=False)
         self.blocks = nn.ModuleList([
             NestedBlock(cfg, i + 1 in cfg.gpool_blocks)
             for i in range(cfg.num_blocks)])
         self.norm_trunkfinal = BatchNorm(cfg.trunk_channels)
         self.policy_head = PolicyHead(cfg)
         self.value_head = ValueHead(cfg)
-        # set by `prepare_serving` where the copy can take `serve`
-        self.serves = False
-
-    def takes_serving_path(self, x: torch.Tensor, train: bool) -> bool:
-        """Whether `forward` runs `serve`: a serving copy that can, a CUDA
-        input."""
-        return not train and x.is_cuda and self.serves
 
     def forward(self, x: torch.Tensor,
                 train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -314,28 +295,9 @@ class NestedBottleneckNet(nn.Module):
             trunk, a = blk.serve(trunk, a, after, act)
         return self.policy_head.serve(a, act), self.value_head.serve(a, act)
 
-    def prepare_serving(self) -> None:
-        """Make this frozen copy a serving copy (`resnet.serving_copy`):
-        convolutions in the compute dtype and, where it can serve (channels
-        multiples of 8), each norm's multiplier and, on the card, the
-        convolutions' weights in channels_last."""
-        convs = [m for m in self.modules() if isinstance(m, Conv)]
-        for m in convs:
-            m.to(m.dtype)
-        cfg = self.cfg
-        widths = (cfg.trunk_channels, cfg.mid_channels, cfg.gpool_channels,
-                  cfg.mid_channels - cfg.gpool_channels, cfg.p1_channels,
-                  cfg.g1_channels, cfg.v1_channels)
-        self.serves = all(c % 8 == 0 for c in widths)
-        if not self.serves:
-            return
-        for bn in self.modules():
-            if isinstance(bn, BatchNorm):
-                bn.serving_mul = torch.rsqrt(bn.running_var + BN_EPS) * \
-                    bn.weight
-        if self.conv_spatial.weight.is_cuda:
-            for m in convs:
-                m.to(memory_format=torch.channels_last)
+    def serving_norms(self) -> list:
+        """Every norm: `serve` hands each to an epilogue."""
+        return [m for m in self.modules() if isinstance(m, BatchNorm)]
 
 
 def build_model(cfg: NbtConfig, device: DeviceLike = "cuda",

@@ -37,10 +37,10 @@ and a BatchNorm whose `channels` is set normalises that slice of the
 channels.  Without a mesh these attributes are None and the forward is
 the plain one, bit for bit.
 
-The serving path (`PolicyValueNet.serve`).  A serving copy without mesh
-attributes, whose channels are a multiple of 8, holds each trunk BN's
-`rsqrt(running_var + eps) * weight`, computed once with the same torch ops
-as the forward computes it.  Its forward on a CUDA input keeps every trunk
+The serving path (`PolicyValueNet.serve`).  A serving copy
+(`prepare_serving`) holds each trunk BN's `rsqrt(running_var + eps) *
+weight` (`serving_mul`), computed once with the same torch ops as the
+forward computes it.  Its forward on a CUDA input keeps every trunk
 activation NHWC (`torch.channels_last`, the layout of cuDNN's kernels; the
 copy's conv weights are stored so) and runs each trunk convolution without
 its bias, then one epilogue kernel (`models/epilogue.py`): the bias add,
@@ -126,6 +126,9 @@ class BatchNorm(nn.Module):
         # reduced over, and the slice of the channels this rank holds
         self.sync = None
         self.channels: Optional[slice] = None
+        # a serving copy's rsqrt(running_var + eps) * weight
+        # (`prepare_serving`)
+        self.serving_mul: Optional[torch.Tensor] = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """Running statistics, or with `train` the batch statistics, which
@@ -183,15 +186,17 @@ def _bn(bn: BatchNorm, x: torch.Tensor, stats: Optional[list]):
 
 
 class Conv(nn.Module):
-    """k x k "same" convolution with fp32 master weight and bias, computed
-    in `dtype` (flax `nn.Conv(dtype=...)` with fp32 `param_dtype`)."""
+    """k x k "same" convolution with fp32 master weight and, unless `bias`
+    is False, bias, computed in `dtype` (flax `nn.Conv(dtype=...)` with
+    fp32 `param_dtype`)."""
 
-    def __init__(self, cin: int, cout: int, k: int, dtype: torch.dtype):
+    def __init__(self, cin: int, cout: int, k: int, dtype: torch.dtype,
+                 bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.padding = k // 2
         self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.tp = None      # on a mesh: its `parallel.mesh.LayerSplit`
 
     def _conv(self, x, w, b):
@@ -199,7 +204,8 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # no copy is made where the parameters already have the dtype
-        w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
+        w = self.weight.to(self.dtype)
+        b = None if self.bias is None else self.bias.to(self.dtype)
         if self.tp is None:
             return self._conv(x, w, b)
         return self.tp.apply(self._conv, x, w, b)
@@ -243,7 +249,20 @@ class ResBlock(nn.Module):
         return F.relu(x + y.to(dt)), tuple(stats or ())
 
 
-class PolicyValueNet(nn.Module):
+class ServingNet(nn.Module):
+    """A net that `prepare_serving` can make a serving copy of.  It gives
+    `serve(x)`, the forward with the running statistics through the
+    epilogues, and `serving_norms()`, the norms `serve` hands to them."""
+
+    serves = False      # set by `prepare_serving` where the copy can serve
+
+    def takes_serving_path(self, x: torch.Tensor, train: bool) -> bool:
+        """Whether `forward` runs `serve`: a serving copy that can, a CUDA
+        input, the running statistics."""
+        return not train and x.is_cuda and self.serves
+
+
+class PolicyValueNet(ServingNet):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
@@ -260,19 +279,13 @@ class PolicyValueNet(nn.Module):
         self.v_bn = BatchNorm(1, m)
         self.v_fc1 = Dense(cfg.board_size ** 2, cfg.value_hidden)
         self.v_fc2 = Dense(cfg.value_hidden, 1)
-        # a serving copy's trunk BN multipliers, in trunk order (`serving_copy`)
-        self.serving_muls: Optional[list] = None
-
-    def takes_serving_path(self, x: torch.Tensor, train: bool) -> bool:
-        """Whether `forward` runs `serve`: a serving copy that can, a CUDA
-        input, the running statistics."""
-        return not train and x.is_cuda and self.serving_muls is not None
 
     def takes_train_epilogues(self, x: torch.Tensor, train: bool) -> bool:
         """Whether `forward` runs its trunk through the training epilogues
         (`_train_layer`): a training forward on a CUDA input of a net
         without mesh attributes whose channels are a multiple of 8."""
-        return train and x.device.type == "cuda" and _unsharded(self)
+        return (train and x.device.type == "cuda"
+                and _fits_epilogues(self, self.trunk_bns()))
 
     def forward(self, x: torch.Tensor,
                 train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -299,9 +312,7 @@ class PolicyValueNet(nn.Module):
                 stats += bs
         log_pi, value = self._heads(h, stats)
         if train:
-            bns = [self.init_bn]
-            bns += [bn for blk in self.blocks for bn in (blk.bn1, blk.bn2)]
-            bns += [self.pi_bn, self.v_bn]
+            bns = self.trunk_bns() + [self.pi_bn, self.v_bn]
             for bn, mean, var in zip(bns, stats[0::2], stats[1::2]):
                 bn.update_running(mean, var)
         return log_pi, value
@@ -322,22 +333,7 @@ class PolicyValueNet(nn.Module):
         return [self.init_bn] + [bn for blk in self.blocks
                                  for bn in (blk.bn1, blk.bn2)]
 
-    def prepare_serving(self) -> None:
-        """Make this frozen copy a serving copy (`serving_copy`): its
-        convolutions in the compute dtype and, where it can (`_can_serve`),
-        each trunk BN's multiplier and, on the card, its conv weights in
-        channels_last, so that it serves through `serve`."""
-        self.serving_muls = None
-        convs = [m for m in self.modules() if isinstance(m, Conv)]
-        for m in convs:
-            m.to(m.dtype)
-        if not _can_serve(self):
-            return
-        self.serving_muls = [torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
-                             for bn in self.trunk_bns()]
-        if self.init_conv.weight.is_cuda:
-            for m in convs:
-                m.to(memory_format=torch.channels_last)
+    serving_norms = trunk_bns
 
     def serve(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The serving path of a serving copy (`serving_copy`): `forward`
@@ -345,18 +341,17 @@ class PolicyValueNet(nn.Module):
         and skip add) one epilogue.  `forward` takes it on a CUDA input; on
         a CPU input the epilogues are the plain version."""
         profiling.count("net.forwards")
-        muls = iter(self.serving_muls)
         h = x.permute(0, 3, 1, 2).to(self.cfg.compute_dtype,
                                       memory_format=torch.channels_last)
-        h = _trunk_layer(self.init_conv, self.init_bn, next(muls), h)
+        h = _trunk_layer(self.init_conv, self.init_bn, h)
         for blk in self.blocks:
-            y = _trunk_layer(blk.conv1, blk.bn1, next(muls), h)
-            h = _trunk_layer(blk.conv2, blk.bn2, next(muls), y, skip=h)
+            y = _trunk_layer(blk.conv1, blk.bn1, h)
+            h = _trunk_layer(blk.conv2, blk.bn2, y, skip=h)
         return self._heads(h, None)
 
 
-def _trunk_layer(conv: Conv, bn: BatchNorm, mul: torch.Tensor,
-                 h: torch.Tensor, skip: Optional[torch.Tensor] = None):
+def _trunk_layer(conv: Conv, bn: BatchNorm, h: torch.Tensor,
+                 skip: Optional[torch.Tensor] = None):
     """relu(bn(conv(h))), or with `skip` relu(skip + relu(bn(conv(h)))),
     in the compute dtype: the convolution, then one epilogue.  cuDNN adds a
     convolution's bias as a pass of its own, rounded to the compute dtype,
@@ -367,7 +362,8 @@ def _trunk_layer(conv: Conv, bn: BatchNorm, mul: torch.Tensor,
                                 padding=conv.padding), conv.bias
     else:
         v, conv_bias = conv(h), None
-    return epilogue(v, bn.running_mean, mul, bn.bias, skip, conv_bias)
+    return epilogue(v, bn.running_mean, bn.serving_mul, bn.bias, skip,
+                    conv_bias)
 
 
 def _train_layer(conv: Conv, bn: BatchNorm, h: torch.Tensor,
@@ -560,34 +556,46 @@ def load_model(path: str, cfg: ModelConfig,
                            device)
 
 
-def _unsharded(net: PolicyValueNet) -> bool:
-    """Whether the epilogue kernels can take the net's trunk: no mesh
-    attribute set, channels a multiple of 8."""
-    for m in net.modules():
-        if getattr(m, "tp", None) is not None or (
-                isinstance(m, BatchNorm)
-                and (m.sync is not None or m.channels is not None)):
-            return False
-    return net.cfg.dim % 8 == 0
+def _fits_epilogues(net: nn.Module, norms: list) -> bool:
+    """Whether the epilogue kernels can take `norms`, the norms a path of
+    `net` hands them: no module of `net` has a mesh attribute set, and each
+    norm has a multiple of 8 channels (the kernels' lanes)."""
+    return all(bn.weight.shape[0] % 8 == 0 for bn in norms) and not any(
+        getattr(m, "tp", None) is not None or (
+            isinstance(m, BatchNorm)
+            and (m.sync is not None or m.channels is not None))
+        for m in net.modules())
 
 
-def _can_serve(net: PolicyValueNet) -> bool:
-    """Whether a copy can take the serving path: every parameter frozen, no
-    mesh attribute set, channels a multiple of 8."""
-    if any(p.requires_grad for p in net.parameters()):
-        return False
-    return _unsharded(net)
+def prepare_serving(net: ServingNet) -> None:
+    """Make the frozen copy `net` a serving copy: its convolutions in the
+    compute dtype and, where it can serve (every parameter frozen, no mesh
+    attribute set, each of `serving_norms()` a multiple of 8 channels),
+    each of those norms' `serving_mul` and, on the card, its conv weights
+    in channels_last, so that it serves through `serve`."""
+    convs = [m for m in net.modules() if isinstance(m, Conv)]
+    for m in convs:
+        m.to(m.dtype)
+    norms = net.serving_norms()
+    net.serves = (not any(p.requires_grad for p in net.parameters())
+                  and _fits_epilogues(net, norms))
+    for bn in norms:        # a copy that does not serve keeps none
+        bn.serving_mul = (torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
+                          if net.serves else None)
+    if net.serves and convs[0].weight.is_cuda:
+        for m in convs:
+            m.to(memory_format=torch.channels_last)
 
 
-def serving_copy(net: nn.Module) -> nn.Module:
-    """A frozen copy of `net` (a `PolicyValueNet`, or any net with a
-    `prepare_serving` method, such as `models.nbt.NestedBottleneckNet`) for
-    inference, whose convolutions hold their weights in the compute dtype.
-    Later updates of `net` do not reach it, as a jitted function keeps the
-    parameters it was given.  Where it can, the copy serves through the
-    net's `serve` (`PolicyValueNet.prepare_serving`)."""
+def serving_copy(net: ServingNet) -> ServingNet:
+    """A frozen copy of `net` (a `PolicyValueNet` or a
+    `models.nbt.NestedBottleneckNet`) for inference, whose convolutions
+    hold their weights in the compute dtype.  Later updates of `net` do not
+    reach it, as a jitted function keeps the parameters it was given.
+    Where it can, the copy serves through the net's `serve`
+    (`prepare_serving`)."""
     frozen = copy.deepcopy(net).requires_grad_(False)
-    frozen.prepare_serving()
+    prepare_serving(frozen)
     return frozen
 
 

@@ -108,14 +108,13 @@ def _edge_boards(kind, B, size, seed):
 
 @pytest.mark.parametrize("B", [1, 32, 1024])
 @pytest.mark.parametrize("size", [2, 5, 9, 13, 19, 32])
-def test_both_designs_match_plain_versions_on_edge_boards(dev, size, B):
-    """The union-find kernels and the round-based ones, exactly equal to the
-    plain versions on the boards that stress a labelling: one chain with
-    one liberty, single-stone chains, empty and full boards, serpentine
-    chains and random boards."""
+def test_union_find_kernels_match_plain_versions_on_edge_boards(dev, size,
+                                                                B):
+    """The union-find kernels, exactly equal to the plain versions on the
+    boards that stress a labelling: one chain with one liberty,
+    single-stone chains, empty and full boards, serpentine chains and
+    random boards."""
     n2 = size * size
-    libs = (kernels.analyze_libs_cuda, kernels.analyze_libs_rounds_cuda)
-    steps = (kernels.step_analysis_cuda, kernels.step_analysis_rounds_cuda)
     for k, kind in enumerate(("one_liberty", "checkerboard", "empty", "full",
                               "serpentine", "random")):
         s_np, a_np, c_np = _edge_boards(kind, B, size, seed=size * 100 + k)
@@ -124,13 +123,12 @@ def test_both_designs_match_plain_versions_on_edge_boards(dev, size, B):
         act, col = torch.from_numpy(a_np).to(dev), torch.from_numpy(c_np).to(dev)
         ref = kernels.analyze_libs_ref(s)
         ref_step = kernels.step_analysis_ref(flat, act, col)
-        for fn in libs:
-            for got, want in zip(fn(s), ref):
-                assert torch.equal(got, want), (fn.__name__, kind)
-        for fn in steps:
-            for got, want in zip(fn(flat, act, col), ref_step):
-                assert got.dtype == want.dtype and torch.equal(got, want), \
-                    (fn.__name__, kind)
+        for got, want in zip(kernels.analyze_libs_cuda(s), ref):
+            assert torch.equal(got, want), ("analyze_libs", kind)
+        for got, want in zip(kernels.step_analysis_cuda(flat, act, col),
+                             ref_step):
+            assert got.dtype == want.dtype and torch.equal(got, want), \
+                ("step_analysis", kind)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -307,7 +307,9 @@ def test_counters_count_epilogues_and_pools_per_forward(cfg, epilogues,
                                                         gpools):
     """One epilogue after every convolution but the policy's last: 1 + 6
     a plain nested block + 7 a pooled one + 3 in the heads; a pool in each
-    pooled block and each head.  The benchmark's layer list agrees."""
+    pooled block and each head.  The benchmark's layer list agrees.  The
+    counts depend on the blocks alone: the forward runs each net's blocks
+    8 channels wide on a 5x5 board."""
     sys.path.insert(0, BENCH)
     try:
         from harness import yardstick_nbt
@@ -317,8 +319,13 @@ def test_counters_count_epilogues_and_pools_per_forward(cfg, epilogues,
     eps = yardstick_nbt.epilogues(bench_cfg)
     assert len(eps) == epilogues
     assert sum(1 for m, _ in eps if m == "pool") == gpools
-    frozen = serving_copy(nbt.NestedBottleneckNet(cfg))
-    x = _features(cfg, 1, 0)
+    narrow = dataclasses.replace(
+        cfg, board_size=5, trunk_channels=16, mid_channels=16,
+        gpool_channels=8, p1_channels=8, g1_channels=8, v1_channels=8,
+        v2_size=8)
+    frozen = serving_copy(nbt.NestedBottleneckNet(narrow))
+    assert frozen.serves
+    x = _features(narrow, 1, 0)
     profiling.reset()
     with torch.no_grad():
         frozen.serve(x)             # tracing off: nothing counted

@@ -281,7 +281,7 @@ def kernels_in_torch(monkeypatch):
     monkeypatch.setattr(epi, "_check_v", lambda v: tuple(v.shape))
     monkeypatch.setattr(resnet.PolicyValueNet, "takes_train_epilogues",
                         lambda self, x, train: train
-                        and resnet._unsharded(self))
+                        and resnet._fits_epilogues(self, self.trunk_bns()))
 
 
 def _step_grads(net, feats):
