@@ -46,6 +46,14 @@ def launch_counts() -> dict:
     }
 
 
+def add_launch_counts(counts: dict) -> None:
+    """Add `counts` (keyed as `launch_counts`) to the launch counts: what a
+    replayed CUDA graph launches, or minus what its capture counted."""
+    global analyze_libs_launches, step_analysis_launches
+    analyze_libs_launches += counts["analyze_libs"]
+    step_analysis_launches += counts["step_analysis"]
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------

@@ -33,14 +33,20 @@ because every XLA scatter is a full-array pass, and both of its paths give
 the direct-write path's trees.  With `max_batches_per_call` `run_mcts`
 calls `mcts_simulate` in chunks of that many batches (the JAX actor's
 host-chunked search), each with its cumulative batch offset.  The
-data-dependent loops (descent, ancestor walk, backprop, fixpoints) check
-their end condition on the host once per step.
+descent and its ancestor walk run to trip counts fixed once per
+simulation batch from one host read (`_trip_counts`), and on a CUDA tree
+each of their steps is replayed from a CUDA graph captured for the tree's
+storage (`_Descent`); the other data-dependent loops (backprop, the
+scoring fill, the df leaf walk) check their end condition on the host once
+per step.
 
 While tracing is on (`profiling`), each simulation batch records the
 spans `elf.mcts.select_expand`, `elf.mcts.evaluate` and `elf.mcts.backprop`
 and counts `search.batches`, every host read of a device value that
 `mcts_simulate` and its callees make (each through `profiling.read`)
-counts `search.host_reads`, and `mcts_root_prepare` records
+counts `search.host_reads`, each descent counts `search.descents` (and
+`search.descents_replayed` where it ran from graphs), each capture of a
+graph set `search.descent_captures`, and `mcts_root_prepare` records
 `elf.mcts.prepare`.
 
 A search over boards split across dp ranks (`shard`, a `BoardRows`) makes
@@ -59,7 +65,7 @@ import numpy as np
 import torch
 
 from elf_tpu_torch.device import DeviceLike, resolve_device
-from elf_tpu_torch.env.go import engine
+from elf_tpu_torch.env.go import engine, kernels
 from elf_tpu_torch.env.go.engine import BLACK, GoCore
 from elf_tpu_torch.env.go.features import (
     extract_agz_from_snapshots,
@@ -319,47 +325,83 @@ def _puct_scores(tree: Tree, node: torch.Tensor, cfg: MCTSConfig,
     return torch.where(legal, q + u, NEG_INF), new_umean
 
 
-def _hash_in_ancestors(tree: Tree, node: torch.Tensor, h_lo: torch.Tensor,
-                       h_hi: torch.Tensor) -> torch.Tensor:
-    """bool [B]: does (h_lo, h_hi) equal a position hash on the path
-    node -> root?  (In-tree positional-superko detection.)"""
-    B = node.shape[0]
-    N = tree.stones.shape[1]
-    rows = torch.arange(B, device=node.device)
-    cur = node
-    found = torch.zeros((B,), dtype=torch.bool, device=node.device)
-    active = torch.ones_like(found)
-    while read(active.any()):
-        safe = cur.clamp(0, N - 1)
-        hit = active & (tree.hash_lo[rows, safe] == h_lo) & (
-            tree.hash_hi[rows, safe] == h_hi)
-        found = found | hit
-        parent = tree.parent[rows, safe].long()
-        active = active & (parent >= 0)
-        cur = torch.where(active, parent, cur)
-    return found
+class _Descent:
+    """One rollout's select + expand for all B trees, in pieces that read
+    and write the tree and this object's buffers in place:
 
+      root, inner   one level of the descent (`_step`; the root's also
+                    starts it from the budget mask `active`);
+      expand        decode the expansion edge, step the engine, write the
+                    child's core, start the ancestor walk;
+      walk          one level of the in-tree superko walk;
+      commit        the game-history superko test and the child's fields.
 
-def _select_and_expand(tree: Tree, cfg: MCTSConfig, size: int,
-                       game_hash_hist=None,
-                       active: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One rollout's select + expand for all B trees (writes the tree in
-    place).  Returns the leaf id [B]: a newly allocated node, an existing
-    pending or terminal node, or the root for terminal/inactive roots."""
-    B, N = tree.stones.shape[:2]
-    dev = tree.stones.device
-    rows = torch.arange(B, device=dev)
-    n2 = size * size
-    A = n2 + 1
+    A descent runs root, inner x (T - 1), expand, walk x W, commit, with T
+    and W fixed for the whole simulation batch (`_trip_counts`): rows that
+    have finished are exact no-ops in every piece, so the tree, the leaves
+    and the generator come out as a descent that stops when every row has
+    finished.  No piece reads a device value on the host and none draws a
+    random number.  On a CUDA tree each piece is captured once into a CUDA
+    graph (`_capture`) and replayed in place of its launches."""
 
-    cur = torch.zeros((B,), dtype=torch.long, device=dev)
-    leaf = torch.zeros_like(cur)             # fallback: root (re-eval)
-    done = tree.terminal[:, 0].clone()       # terminal roots: nothing to do
-    if active is not None:
-        done = done | ~active
-    depth = 0
-    while depth < cfg.max_depth and not read(done.all()):
-        scores, new_umean = _puct_scores(tree, cur, cfg, depth == 0)
+    def __init__(self, tree: Tree, cfg: MCTSConfig, size: int,
+                 hist_shape=None):
+        B = tree.stones.shape[0]
+        dev = tree.stones.device
+        self.tree, self.cfg, self.size = tree, cfg, size
+        self.rows = torch.arange(B, device=dev)
+
+        def z(dtype):
+            return torch.zeros((B,), dtype=dtype, device=dev)
+
+        self.cur, self.leaf, self.out, self.wcur = (z(torch.long)
+                                                    for _ in range(4))
+        self.done, self.found, self.wactive = (z(torch.bool)
+                                               for _ in range(3))
+        self.active = torch.ones((B,), dtype=torch.bool, device=dev)
+        self.hist = None
+        if hist_shape is not None:
+            self.hist = (torch.zeros(hist_shape, dtype=torch.int32,
+                                     device=dev),
+                         torch.zeros(hist_shape, dtype=torch.int32,
+                                     device=dev), z(torch.int32))
+        self.x = None       # what `expand` hands to `commit`
+        self.h = None       # the child's hash, which `walk` looks for
+        self.layout = None  # a graphed set's shapes and configuration
+        self.pool = None    # its graphs' memory pool and capture stream,
+        self.stream = None  # shared by the slot's sets
+        self.retired = None  # the slot's previous graphs, until captured
+        self.graphs = None  # name -> (CUDAGraph, liberty launches in it)
+
+    def load(self, active: Optional[torch.Tensor], game_hash_hist) -> None:
+        """Copy a batch's inputs into the buffers (device copies)."""
+        if active is None:
+            self.active.fill_(True)
+        else:
+            self.active.copy_(active)
+        if self.hist is not None:
+            for have, new in zip(self.hist, game_hash_hist):
+                have.copy_(new)
+
+    def _start(self) -> None:
+        self.cur.zero_()
+        self.leaf.zero_()                    # fallback: root (re-eval)
+        # terminal or inactive roots: nothing to do
+        self.done.copy_(self.tree.terminal[:, 0] | ~self.active)
+
+    def root(self) -> None:
+        self._start()
+        self._step(is_root=True)
+
+    def inner(self) -> None:
+        self._step(is_root=False)
+
+    def _step(self, is_root: bool) -> None:
+        tree, cfg, rows = self.tree, self.cfg, self.rows
+        cur, done = self.cur, self.done
+        N = tree.stones.shape[1]
+        A = tree.prior.shape[2]
+        scores, new_umean = _puct_scores(tree, cur, cfg, is_root)
         a = torch.argmax(scores, dim=1)
         tree.umean_q[rows, cur] = torch.where(done, tree.umean_q[rows, cur],
                                               new_umean)
@@ -374,67 +416,232 @@ def _select_and_expand(tree: Tree, cfg: MCTSConfig, size: int,
         child_terminal = has_child & tree.terminal[rows, safe_child]
         stop_expand = ~done & ~has_child
         stop_leaf = ~done & (child_pending | child_terminal)
-        leaf = torch.where(stop_leaf, child, leaf)
+        leaf = torch.where(stop_leaf, child, self.leaf)
         # encode the expansion edge (cur, a) as -(cur*A + a) - 2
         leaf = torch.where(stop_expand, -(cur * A + a) - 2, leaf)
         done = done | stop_expand | stop_leaf
-        cur = torch.where(done, cur, safe_child)
-        depth += 1
-    leaf = torch.where(done, leaf, cur)      # depth cap: re-evaluate
+        self.cur.copy_(torch.where(done, cur, safe_child))
+        self.leaf.copy_(leaf)
+        self.done.copy_(done)
 
-    # --- expansion: decode (node, action), step env, allocate --------------
-    need_expand = (leaf < -1) & (tree.count < N)
-    frontier = (leaf < -1) & ~need_expand
-    enc = torch.where(leaf < -1, -(leaf + 2), 0)
-    exp_node = enc // A
-    exp_a = enc % A
+    def expand(self) -> None:
+        tree, rows, size = self.tree, self.rows, self.size
+        N = tree.stones.shape[1]
+        A = size * size + 1
+        # a row still descending at the depth cap re-evaluates its node
+        leaf = torch.where(self.done, self.leaf, self.cur)
+        need_expand = (leaf < -1) & (tree.count < N)
+        frontier = (leaf < -1) & ~need_expand
+        enc = torch.where(leaf < -1, -(leaf + 2), 0)
+        exp_node = enc // A
+        exp_a = enc % A
 
-    core = _core_at(tree, rows, exp_node)
-    child_core, step_info = engine.step_core(core, exp_a.to(torch.int32), size)
-    new_id = torch.where(need_expand, tree.count.long(), 0).clamp(0, N - 1)
-    _write_core(tree, new_id, child_core, need_expand)
+        core = _core_at(tree, rows, exp_node)
+        child_core, step_info = engine.step_core(core, exp_a.to(torch.int32),
+                                                 size)
+        new_id = torch.where(need_expand, tree.count.long(), 0).clamp(0, N - 1)
+        _write_core(tree, new_id, child_core, need_expand)
+        self.wcur.copy_(exp_node)
+        self.found.zero_()
+        self.wactive.fill_(True)
+        self.h = (child_core.hash_lo, child_core.hash_hi)
+        self.x = (leaf, need_expand, frontier, exp_node, exp_a, new_id,
+                  child_core, step_info.legal_next)
 
-    # in-tree positional superko: a stone move recreating a path-ancestor
-    # or game-history position terminates, scored for the player to move
-    is_stone_move = exp_a < n2
-    rep = _hash_in_ancestors(tree, exp_node, child_core.hash_lo,
-                             child_core.hash_hi)
-    if game_hash_hist is not None:
-        gl, gh, gn = game_hash_hist
-        k = torch.arange(gl.shape[1], device=dev)[None, :]
-        rep = rep | ((gl == child_core.hash_lo[:, None])
-                     & (gh == child_core.hash_hi[:, None])
-                     & (k < gn[:, None])).any(dim=1)
-    rep = rep & is_stone_move & need_expand
-    superko_value = torch.where(child_core.to_play == BLACK, 1.0, -1.0)
-    term = engine.is_terminal_core(child_core, size) | rep
-    # pre-prior: legality of the child position, in the prior's sign
-    pre_prior = torch.where(step_info.legal_next, 0.0, -1.0).to(torch.bfloat16)
-    parent_umean = tree.umean_q[rows, exp_node]
+    def walk(self) -> None:
+        """One level of the in-tree positional-superko test: does the
+        child's hash equal the hash of a node on the path exp_node ->
+        root?"""
+        tree, rows = self.tree, self.rows
+        h_lo, h_hi = self.h
+        safe = self.wcur.clamp(0, tree.stones.shape[1] - 1)
+        hit = self.wactive & (tree.hash_lo[rows, safe] == h_lo) & (
+            tree.hash_hi[rows, safe] == h_hi)
+        self.found |= hit
+        parent = tree.parent[rows, safe].long()
+        active = self.wactive & (parent >= 0)
+        self.wcur.copy_(torch.where(active, parent, self.wcur))
+        self.wactive.copy_(active)
 
-    def put(arr, idx, val):
-        old = arr[idx]
-        m = need_expand.reshape((B,) + (1,) * (old.ndim - 1))
-        arr[idx] = torch.where(m, val.to(arr.dtype) if torch.is_tensor(val)
-                               else torch.full_like(old, val), old)
+    def commit(self) -> None:
+        tree, cfg, rows, size = self.tree, self.cfg, self.rows, self.size
+        B = rows.shape[0]
+        n2 = size * size
+        (leaf, need_expand, frontier, exp_node, exp_a, new_id, child_core,
+         legal_next) = self.x
 
-    at_new = (rows, new_id)
-    tree.superko[at_new] = torch.where(need_expand, rep, tree.superko[at_new])
-    tree.value[at_new] = torch.where(rep, superko_value, tree.value[at_new])
-    put(tree.prior, at_new, pre_prior)
-    put(tree.child, (rows, exp_node, exp_a), new_id)
-    put(tree.parent, at_new, exp_node)
-    put(tree.parent_a, at_new, exp_a)
-    put(tree.terminal, at_new, term)
-    put(tree.n, at_new, 0)
-    put(tree.w, at_new, 0.0)
-    put(tree.vl, at_new, cfg.virtual_loss)
-    put(tree.umean_q, at_new, parent_umean)
-    put(tree.uparent_q, at_new, parent_umean)
-    tree.count.add_(need_expand.to(torch.int32))
+        # in-tree positional superko: a stone move recreating a
+        # path-ancestor or game-history position terminates, scored for
+        # the player to move
+        is_stone_move = exp_a < n2
+        rep = self.found
+        if self.hist is not None:
+            gl, gh, gn = self.hist
+            k = torch.arange(gl.shape[1], device=rows.device)[None, :]
+            rep = rep | ((gl == child_core.hash_lo[:, None])
+                         & (gh == child_core.hash_hi[:, None])
+                         & (k < gn[:, None])).any(dim=1)
+        rep = rep & is_stone_move & need_expand
+        superko_value = torch.where(child_core.to_play == BLACK, 1.0, -1.0)
+        term = engine.is_terminal_core(child_core, size) | rep
+        # pre-prior: legality of the child position, in the prior's sign
+        pre_prior = torch.where(legal_next, 0.0, -1.0).to(torch.bfloat16)
+        parent_umean = tree.umean_q[rows, exp_node]
 
-    leaf = torch.where(need_expand, new_id, leaf)
-    return torch.where(frontier, exp_node, leaf)
+        def put(arr, idx, val):
+            old = arr[idx]
+            m = need_expand.reshape((B,) + (1,) * (old.ndim - 1))
+            arr[idx] = torch.where(m, val.to(arr.dtype) if torch.is_tensor(val)
+                                   else torch.full_like(old, val), old)
+
+        at_new = (rows, new_id)
+        tree.superko[at_new] = torch.where(need_expand, rep,
+                                           tree.superko[at_new])
+        tree.value[at_new] = torch.where(rep, superko_value,
+                                         tree.value[at_new])
+        put(tree.prior, at_new, pre_prior)
+        put(tree.child, (rows, exp_node, exp_a), new_id)
+        put(tree.parent, at_new, exp_node)
+        put(tree.parent_a, at_new, exp_a)
+        put(tree.terminal, at_new, term)
+        put(tree.n, at_new, 0)
+        put(tree.w, at_new, 0.0)
+        put(tree.vl, at_new, cfg.virtual_loss)
+        put(tree.umean_q, at_new, parent_umean)
+        put(tree.uparent_q, at_new, parent_umean)
+        tree.count.add_(need_expand.to(torch.int32))
+
+        leaf = torch.where(need_expand, new_id, leaf)
+        self.out.copy_(torch.where(frontier, exp_node, leaf))
+
+    def _capture(self) -> None:
+        """Capture each piece into a CUDA graph of its own, on the slot's
+        side stream, in its memory pool (a pool's free blocks serve the
+        stream that freed them).  The pieces may share the pool: only
+        `expand` leaves values for later pieces (`x`, `h`), which only
+        `walk` and `commit`, captured after it, replay before the next
+        `expand`.  The slot's previous graphs, kept until now, keep the
+        pool alive, so that each set reuses the last one's memory.
+        Capturing launches nothing: the liberty kernels' launch counts are
+        put back, and each replay adds what its graph launches."""
+        graphs = {}
+        with torch.cuda.stream(self.stream):
+            for name in ("root", "inner", "expand", "walk", "commit"):
+                before = kernels.launch_counts()
+                g = torch.cuda.CUDAGraph()
+                g.capture_begin(pool=self.pool,
+                                capture_error_mode="thread_local")
+                try:
+                    getattr(self, name)()
+                finally:
+                    g.capture_end()
+                launched = {k: v - before[k]
+                            for k, v in kernels.launch_counts().items()}
+                kernels.add_launch_counts({k: -v for k, v in launched.items()})
+                graphs[name] = (g, launched)
+        self.graphs, self.retired = graphs, None
+        count("search.descent_captures")
+
+    def _run(self, name: str, times: int = 1) -> None:
+        if self.graphs is None:
+            for _ in range(times):
+                getattr(self, name)()
+            return
+        g, launched = self.graphs[name]
+        for _ in range(times):
+            g.replay()
+            kernels.add_launch_counts(launched)
+
+    def descend(self, T: int, W: int) -> torch.Tensor:
+        """One descent of T levels and a walk of W levels; returns the
+        leaf id [B]: a newly allocated node, an existing pending or
+        terminal node, or the root for terminal/inactive roots."""
+        count("search.descents")
+        if self.graphs is None and self.layout in _WARM:
+            self._capture()
+        if self.graphs is not None:
+            count("search.descents_replayed")
+        if T:
+            self._run("root")
+            self._run("inner", T - 1)
+        else:
+            self._start()
+        self._run("expand")
+        self._run("walk", W)
+        self._run("commit")
+        if self.layout is not None:
+            _WARM.add(self.layout)
+        return self.out.clone()
+
+
+# graphed descents: one per (B, N, size, device), for the tree storage
+# they were captured on; layouts that have run one eager descent
+_GRAPHED: dict = {}
+_WARM: set = set()
+
+
+def _graphs_on(tree: Tree) -> bool:
+    """Whether the descent on `tree` is replayed from CUDA graphs."""
+    return tree.stones.is_cuda
+
+
+def _descent_for(tree: Tree, cfg: MCTSConfig, size: int,
+                 game_hash_hist) -> _Descent:
+    """The descent pieces for `tree`.  On a CUDA tree they are kept across
+    calls, keyed on the storage of the tree's fields (the graphs address
+    it), the configuration and the history's shape: a tree at other
+    storage replaces the set of its (B, N, size, device) by a new one in
+    the same memory pool, so the memory the slot holds does not grow,
+    captured after one eager descent of each new
+    layout (which loads the kernels and fills the engine's tables)."""
+    hist_shape = None if game_hash_hist is None else tuple(
+        game_hash_hist[0].shape)
+    if not _graphs_on(tree):
+        return _Descent(tree, cfg, size, hist_shape)
+    B, N = tree.stones.shape[:2]
+    dev = tree.stones.device
+    slot = (B, N, size, dev)
+    key = (cfg, hist_shape) + tuple(
+        (t.data_ptr(), t.shape, t.stride(), t.dtype) for t in tree)
+    d = _GRAPHED.get(slot)
+    if d is None or d.key != key:
+        old, d = d, _Descent(tree, cfg, size, hist_shape)
+        d.key, d.layout = key, (slot, cfg, hist_shape)
+        if old is None:
+            d.pool = torch.cuda.graph_pool_handle()
+            d.stream = torch.cuda.Stream(dev)
+        else:
+            d.pool, d.stream = old.pool, old.stream
+            d.retired = old.graphs or old.retired
+        _GRAPHED[slot] = d
+    d.tree = tree
+    return d
+
+
+def _trip_counts(tree: Tree, cfg: MCTSConfig) -> Tuple[int, int]:
+    """(T, W): the descent's levels and the ancestor walk's for a whole
+    simulation batch, from one host read.  A descent moves only into
+    expanded non-terminal children, and no node is expanded while the
+    batch descends, so with E the depth of the deepest expanded node every
+    row has stopped after E + 1 levels, and every expansion edge leaves a
+    node at depth <= E, whose walk to the root takes E + 1 levels.  A
+    node's depth is its ply less the root's (each edge plays one move;
+    where a root was re-written from a game that did not advance, that
+    overstates it, which only adds no-op levels)."""
+    E = read(torch.where(tree.expanded, tree.ply - tree.ply[:, :1],
+                         0).amax(), int)
+    return min(E + 1, cfg.max_depth), E + 1
+
+
+def _select_and_expand(tree: Tree, cfg: MCTSConfig, size: int, m: int,
+                       game_hash_hist=None,
+                       active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The m descents of a simulation batch (writes the tree in place):
+    the leaf ids [m, B].  One host read, the trip counts."""
+    d = _descent_for(tree, cfg, size, game_hash_hist)
+    T, W = _trip_counts(tree, cfg)
+    d.load(active, game_hash_hist)
+    return torch.stack([d.descend(T, W) for _ in range(m)])
 
 
 def _leaf_snapshots(tree: Tree, rows: torch.Tensor, leaf: torch.Tensor,
@@ -865,10 +1072,8 @@ def mcts_simulate(tree: Tree, root_hist: torch.Tensor,
     for batch_idx in range(batch_offset, batch_offset + n_batches):
         active = None if budget is None else (batch_idx < budget)
         with span("elf.mcts.select_expand"):
-            leaves = torch.stack([
-                _select_and_expand(tree, cfg, size, game_hash_hist, active)
-                for _ in range(m)
-            ])                                                  # [m, B]
+            leaves = _select_and_expand(tree, cfg, size, m, game_hash_hist,
+                                        active)                 # [m, B]
 
         # ---- one fused NN evaluation over all m*B leaves ----
         with span("elf.mcts.evaluate"):

@@ -707,6 +707,91 @@ def test_chunked_search_on_card_equals_unchunked(dev):
                            actors[1].state.core.stones)
 
 
+def test_graphed_descent_equals_eager_on_card(dev, monkeypatch):
+    """The descent replayed from CUDA graphs equals the eager descent bit
+    for bit over four moves of `SelfplayActor.play_moves` with a new tree
+    a move (a capture each), two with persistent trees (`advance_tree`
+    makes the second move's tree) and two of GTP's B = 1 `genmove`: every
+    searched tree and result, the moves and the liberty kernels' launch
+    counts.  The graphed runs are traced (captures happen while the
+    profiler records), capture one graph set a tree, and the memory the
+    card holds does not grow with the captures."""
+    from elf_tpu_torch import profiling
+    from elf_tpu_torch.console.gtp import GtpEngine
+    from elf_tpu_torch.search import mcts
+    from elf_tpu_torch.selfplay.actor import ActorConfig, SelfplayActor
+
+    size = 9
+    mcfg = MCTSConfig(num_rollouts=32, rollouts_per_batch=4, virtual_loss=2,
+                      root_epsilon=0.25, root_alpha=0.3)
+
+    def actor_moves(persistent, moves):
+        actor = SelfplayActor(
+            ActorConfig(board_size=size, batch=16, never_resign_prob=1.0,
+                        policy_distri_cutoff=1, persistent_tree=persistent),
+            mcfg, lambda p, b: _exact_eval(size), seed=3, device=dev)
+        searched = []
+        search = actor._search
+
+        def keep(state, eval_fn):
+            res, tree = search(state, eval_fn)
+            searched.append((res, mcts.Tree(*(t.clone() for t in tree))))
+            return res, tree
+
+        actor._search = keep
+        for _ in range(moves):
+            actor.play_moves(None, None, 1)
+            reserved.append(torch.cuda.memory_reserved(dev))
+        return searched, actor.moves
+
+    def gtp_moves():
+        eng = GtpEngine(lambda p, b: _exact_eval(size), mcfg, size=size,
+                        seed=3, resign_thres=0.0, device=dev)
+        eng.set_model(None, None)
+        moves = [eng.genmove("b"), eng.genmove("w")]
+        return [(None, eng.tree)], (moves, [e["carried_visits"]
+                                            for e in eng.searches])
+
+    reserved = []
+
+    def run():
+        kernels.reset_launch_counts()
+        reserved.clear()
+        out = [actor_moves(False, 4), actor_moves(True, 2), gtp_moves()]
+        return out, kernels.launch_counts()
+
+    monkeypatch.setattr(mcts, "_GRAPHED", {})
+    monkeypatch.setattr(mcts, "_WARM", set())
+    with monkeypatch.context() as m:
+        m.setattr(mcts, "_graphs_on", lambda tree: False)
+        eager, eager_launches = run()
+    profiling.reset()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        graphed, graphed_launches = run()
+    counts = profiling.counters()
+    profiling.reset()
+
+    assert graphed_launches == eager_launches
+    assert eager_launches["step_analysis"] > 0
+    for (e_searched, e_moves), (g_searched, g_moves) in zip(eager, graphed):
+        assert e_moves == g_moves
+        assert len(e_searched) == len(g_searched)
+        for (e_res, e_tree), (g_res, g_tree) in zip(e_searched, g_searched):
+            for field, a, b in zip(e_tree._fields, e_tree, g_tree):
+                assert torch.equal(a, b), field
+            if e_res is not None:
+                for a, b in zip(e_res, g_res):
+                    assert torch.equal(a, b)
+    # eight searched trees, one capture each; the first descent of each of
+    # the three layouts ran eagerly before it
+    assert counts["search.descent_captures"] == 8
+    assert counts["search.descents_replayed"] == counts["search.descents"] - 3
+    assert len(mcts._GRAPHED) == 3
+    assert reserved[3] <= reserved[1]
+
+
 def test_offline_steps_on_card_match_cpu(dev, monkeypatch):
     """Three fp32 supervised (df_pred) steps on the card against the same
     steps on the CPU, on offline targets of two horizons: stats, parameters
