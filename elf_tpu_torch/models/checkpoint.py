@@ -13,9 +13,9 @@ params-only export) and `step`, in the trees the JAX trainer writes: the
 flax layouts of `models/resnet.py` and the optax chain's state dict that
 `training/trainer.py` `Optimizer` keeps.
 
-A net with no JAX twin (`models/nbt.py`) is saved as a torch state dict
-instead (`save_state_dict`, `load_state_dict`): CPU tensors under the
-net's own names, read back without unpickling any code.
+A net with no JAX twin (`models/nbt.py`) is saved in the same format,
+its trees (parameters, BN statistics, each optimizer slot) flat dicts of
+CPU tensors under the net's own state-dict names.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from elf_tpu_torch.models.resnet import (
+    ModelConfig,
     flax_to_tensors,
     load_flax_trees,
     tensors_to_flax,
@@ -255,6 +256,26 @@ def read_checkpoint(path: str) -> dict:
         return msgpack_restore(f.read())
 
 
+def _tree(cfg, named: dict, stats: bool = False) -> dict:
+    """The file's tree of `named` (tensors under the net's names): flax's
+    layouts for a net with a JAX twin (a `ModelConfig`), else flat."""
+    if isinstance(cfg, ModelConfig):
+        return tensors_to_flax(cfg, named, stats)
+    return {k: v.detach().cpu().contiguous() for k, v in named.items()}
+
+
+def _tensors(cfg, tree: dict) -> dict:
+    """Inverse of `_tree` for the parameters and their optimizer slots."""
+    return flax_to_tensors(cfg, tree) if isinstance(cfg, ModelConfig) else tree
+
+
+def _load_trees(net, params: dict, batch_stats: dict) -> None:
+    if isinstance(net.cfg, ModelConfig):
+        load_flax_trees(net, params, batch_stats)
+    else:
+        net.load_state_dict({**params, **batch_stats})
+
+
 def _model_trees(net, dtype: Optional[torch.dtype] = None):
     def cast(tree):
         if dtype is None:
@@ -263,14 +284,14 @@ def _model_trees(net, dtype: Optional[torch.dtype] = None):
                 else (v.to(dtype) if v.is_floating_point() else v)
                 for k, v in tree.items()}
 
-    params = tensors_to_flax(net.cfg, dict(net.named_parameters()))
-    stats = tensors_to_flax(net.cfg, dict(net.named_buffers()), stats=True)
+    params = _tree(net.cfg, dict(net.named_parameters()))
+    stats = _tree(net.cfg, dict(net.named_buffers()), stats=True)
     return cast(params), cast(stats)
 
 
 def _opt_tree(cfg, opt_state: dict) -> dict:
     return {
-        k: tensors_to_flax(cfg, v) if k in _SLOTS
+        k: _tree(cfg, v) if k in _SLOTS
         else _opt_tree(cfg, v) if isinstance(v, dict) else v
         for k, v in opt_state.items()
     }
@@ -333,7 +354,7 @@ def save_params_checkpoint(path: str, state,
 def _restore_opt(cfg, own: dict, tree: dict) -> None:
     for k, v in own.items():
         if k in _SLOTS:
-            for name, t in flax_to_tensors(cfg, tree[k]).items():
+            for name, t in _tensors(cfg, tree[k]).items():
                 if t.shape != v[name].shape:
                     raise ValueError(
                         f"checkpoint shape mismatch at {k}/{name}: "
@@ -357,26 +378,12 @@ def load_checkpoint(path: str, template=None):
     if template is None:
         return payload["params"], payload["batch_stats"], int(payload["step"])
     state = copy.deepcopy(template)
-    load_flax_trees(state.net, payload["params"], payload["batch_stats"])
+    _load_trees(state.net, payload["params"], payload["batch_stats"])
     if "opt_state" in payload:
         with torch.no_grad():
             _restore_opt(state.net.cfg, state.opt_state, payload["opt_state"])
     state.step = int(payload["step"])
     return state
-
-
-def save_state_dict(path: str, net: torch.nn.Module) -> str:
-    """Write `net`'s state dict (parameters and BN statistics, as CPU
-    tensors) to `path`, atomically."""
-    state = {k: v.detach().cpu() for k, v in net.state_dict().items()}
-    torch.save(state, path + ".tmp")
-    os.replace(path + ".tmp", path)
-    return path
-
-
-def load_state_dict(path: str) -> dict:
-    """The state dict `save_state_dict` wrote (CPU tensors)."""
-    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def version_from_path(path: str) -> int:

@@ -33,7 +33,22 @@ stream, the inner stream and each convolution's input; every norm, the
 pooling and the dense layers in fp32.  The norms are the port's
 `BatchNorm` with its running statistics: at inference a per-channel
 affine, as KataGo's exported nets reduce theirs to a scale and a bias.
-The net has no training forward (`net(x, train=True)` raises).
+
+The training forward (`net(x, train=True)`, the learner's).  Every norm
+normalises by the batch's mean and biased variance over (B, N, N) in fp32
+(`BatchNorm.batch_norm`) and then moves its running statistics once, after
+the forward, by the port's momentum rule (`NbtConfig.bn_momentum`, as
+`ModelConfig`'s); the activation is torch's own (`F.mish` or `F.relu`);
+the board's pooling takes torch's mean and max; the convolutions run
+NHWC (`torch.channels_last`) in the compute dtype from fp32 master
+weights cast per call; pooling and dense layers stay fp32.  The backward
+is autograd's through these torch ops.  `NbtConfig(remat=True)`
+recomputes each nested block in the backward pass
+(`torch.utils.checkpoint`); a recomputed block computes its statistics
+again and writes nothing.  While tracing is on, `net.train_normacts`
+counts each norm-and-activation call of a training forward (118 a forward
+at `b18c384nbt`'s layout, and 114 more for remat's recompute) and
+`net.train_gpools` each pooling (8, and 6 more).
 
 The serving path (`NestedBottleneckNet.serve`).  A serving copy
 (`resnet.prepare_serving`) whose channels are multiples of 8 holds each
@@ -60,13 +75,14 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from elf_tpu_torch import profiling
 from elf_tpu_torch.device import DeviceLike, resolve_device
 from elf_tpu_torch.models.epilogue import (activation, board_pool, normact,
-                                           pool)
-from elf_tpu_torch.models.resnet import (BatchNorm, Conv, ServingNet,
-                                         init_weights)
+                                           pool, pool_scales)
+from elf_tpu_torch.models.resnet import (BatchNorm, Conv, ModelConfig,
+                                         ServingNet, init_weights)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +108,12 @@ class NbtConfig:
     v2_size: int = 64
     activation: str = "mish"
     use_bf16: bool = True
+    bn_momentum: float = 0.0   # as `ModelConfig.bn_momentum`
+    # recompute each nested block in the backward pass (the batch-2048
+    # train step needs it)
+    remat: bool = False
+
+    torch_bn_momentum = ModelConfig.torch_bn_momentum
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -101,6 +123,40 @@ class NbtConfig:
 def _k(norm: BatchNorm) -> tuple:
     """A serving copy's epilogue constants of `norm`: mean, mul, bias."""
     return norm.running_mean, norm.serving_mul, norm.bias
+
+
+def _train_act(name: str):
+    """The training forward's activation: torch's own, whose backward is
+    autograd's."""
+    activation(name)                # refuses an unknown name
+    return F.relu if name == "relu" else F.mish
+
+
+def _normact(norm: BatchNorm, h: torch.Tensor, act, stats: list):
+    """act(norm(h)) in fp32 with the batch statistics, appended to `stats`
+    as (mean, var)."""
+    profiling.count("net.train_normacts")
+    y, mean, var = norm.batch_norm(h)
+    stats += [mean, var]
+    return act(y)
+
+
+def _conv(conv: Conv, h: torch.Tensor) -> torch.Tensor:
+    """conv(h) of a training forward: NHWC in the compute dtype, the fp32
+    master weight cast per call."""
+    w = conv.weight.to(conv.dtype, memory_format=torch.channels_last)
+    h = h.to(conv.dtype, memory_format=torch.channels_last)
+    return F.conv2d(h, w, None, padding=conv.padding)
+
+
+def _pool(g: torch.Tensor, kind: str) -> torch.Tensor:
+    """`board_pool(g, kind)` of a training forward, by torch's mean and
+    max."""
+    profiling.count("net.train_gpools")
+    _, k1, k2 = pool_scales(g.shape[2] * g.shape[3])
+    mean = g.mean(dim=(2, 3))
+    third = g.amax(dim=(2, 3)) if kind == "gpool" else mean * k2
+    return torch.cat([mean, mean * k1, third], 1)
 
 
 class NormActConv(nn.Module):
@@ -113,6 +169,9 @@ class NormActConv(nn.Module):
 
     def forward(self, h: torch.Tensor, act) -> torch.Tensor:
         return self.conv(act(self.norm(h)).to(self.conv.dtype))
+
+    def train_forward(self, h: torch.Tensor, act, stats: list):
+        return _conv(self.conv, _normact(self.norm, h, act, stats))
 
 
 class ResBlock(nn.Module):
@@ -129,6 +188,10 @@ class ResBlock(nn.Module):
 
     def forward(self, r: torch.Tensor, act) -> torch.Tensor:
         return r + self.normactconv2(self.normactconv1(r, act), act)
+
+    def train_forward(self, r: torch.Tensor, act, stats: list):
+        u = self.normactconv1.train_forward(r, act, stats)
+        return r + self.normactconv2.train_forward(u, act, stats)
 
     def serve(self, r, a, after: BatchNorm, act: str):
         """(r, act(after(r))) of the block, from a = act(first_norm(r))."""
@@ -161,6 +224,14 @@ class GPoolResBlock(nn.Module):
         t = self.conv1r(a).float() + self.linear_g(g)[:, :, None, None]
         return r + self.conv2(act(self.norm2(t)).to(dt))
 
+    def train_forward(self, r: torch.Tensor, act, stats: list):
+        a = _normact(self.norm1, r, act, stats).to(
+            self.conv2.dtype, memory_format=torch.channels_last)
+        g = _pool(_normact(self.normg, _conv(self.conv1g, a), act, stats),
+                  "gpool")
+        t = _conv(self.conv1r, a).float() + self.linear_g(g)[:, :, None, None]
+        return r + _conv(self.conv2, _normact(self.norm2, t, act, stats))
+
     def serve(self, r, a, after: BatchNorm, act: str):
         g = pool(self.conv1g(a), *_k(self.normg), act, "gpool")
         u = normact(self.conv1r(a), *_k(self.norm2), act,
@@ -186,6 +257,15 @@ class NestedBlock(nn.Module):
         for blk in self.blockstack:
             r = blk(r, act)
         return x + self.normactconvq(r, act)
+
+    def train_forward(self, x: torch.Tensor, act):
+        """(output, the batch statistics of the block's norms in order),
+        which the caller writes."""
+        stats: list = []
+        r = self.normactconvp.train_forward(x, act, stats)
+        for blk in self.blockstack:
+            r = blk.train_forward(r, act, stats)
+        return x + self.normactconvq.train_forward(r, act, stats), tuple(stats)
 
     def serve(self, x, a, after: BatchNorm, act: str):
         """(x, act(after(x))) of the block, from a = act(norm_p(x))."""
@@ -216,6 +296,12 @@ class PolicyHead(nn.Module):
         p = self.conv1p(h).float() + self.linear_g(g)[:, :, None, None]
         return self._log_pi(act(self.norm2(p)).to(h.dtype), g)
 
+    def train_forward(self, h: torch.Tensor, act, stats: list):
+        g = _pool(_normact(self.normg, _conv(self.conv1g, h), act, stats),
+                  "gpool")
+        p = _conv(self.conv1p, h).float() + self.linear_g(g)[:, :, None, None]
+        return self._log_pi(_normact(self.norm2, p, act, stats).to(h.dtype), g)
+
     def serve(self, h: torch.Tensor, act: str) -> torch.Tensor:
         g = pool(self.conv1g(h), *_k(self.normg), act, "gpool")
         p = normact(self.conv1p(h), *_k(self.norm2), act,
@@ -241,6 +327,11 @@ class ValueHead(nn.Module):
         v = board_pool(act(self.norm1(self.conv1(h))), "value")
         return self._value(v, act)
 
+    def train_forward(self, h: torch.Tensor, act, stats: list):
+        v = _pool(_normact(self.norm1, _conv(self.conv1, h), act, stats),
+                  "value")
+        return self._value(v, act)
+
     def serve(self, h: torch.Tensor, act: str) -> torch.Tensor:
         v = pool(self.conv1(h), *_k(self.norm1), act, "value")
         return self._value(v, activation(act))
@@ -263,13 +354,16 @@ class NestedBottleneckNet(ServingNet):
         self.norm_trunkfinal = BatchNorm(cfg.trunk_channels)
         self.policy_head = PolicyHead(cfg)
         self.value_head = ValueHead(cfg)
+        for norm in self.serving_norms():
+            norm.momentum = cfg.torch_bn_momentum
 
     def forward(self, x: torch.Tensor,
                 train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: [B, N, N, C] float32 -> (log_pi [B, A] f32, value [B] f32),
-        with the norms' running statistics."""
+        with the norms' running statistics, or with `train` the batch
+        statistics (`train_forward`)."""
         if train:
-            raise ValueError("NestedBottleneckNet has no training forward")
+            return self.train_forward(x)
         if self.takes_serving_path(x, train):
             return self.serve(x)
         act = activation(self.cfg.activation)
@@ -279,6 +373,30 @@ class NestedBottleneckNet(ServingNet):
             h = blk(h, act)
         h = act(self.norm_trunkfinal(h)).to(dt)
         return self.policy_head(h, act), self.value_head(h, act)
+
+    def train_forward(self, x: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The training forward (see the module): the batch statistics,
+        which move the running ones once, after the forward; with
+        `cfg.remat` each nested block is recomputed in the backward."""
+        act = _train_act(self.cfg.activation)
+        stats: list = []
+        h = _conv(self.conv_spatial, x.permute(0, 3, 1, 2))
+        for blk in self.blocks:
+            if self.cfg.remat:
+                h, bs = checkpoint(blk.train_forward, h, act,
+                                   use_reentrant=False)
+            else:
+                h, bs = blk.train_forward(h, act)
+            stats += bs
+        h = _normact(self.norm_trunkfinal, h, act, stats).to(
+            self.cfg.compute_dtype, memory_format=torch.channels_last)
+        log_pi = self.policy_head.train_forward(h, act, stats)
+        value = self.value_head.train_forward(h, act, stats)
+        for norm, mean, var in zip(self.serving_norms(), stats[0::2],
+                                   stats[1::2], strict=True):
+            norm.update_running(mean, var)
+        return log_pi, value
 
     def serve(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The serving path of a serving copy: `forward`, each convolution
@@ -312,11 +430,13 @@ def build_model(cfg: NbtConfig, device: DeviceLike = "cuda",
 
 def load_model(path: str, cfg: NbtConfig,
                device: DeviceLike = "cuda") -> NestedBottleneckNet:
-    """A NestedBottleneckNet from a torch state-dict file
-    (`checkpoint.save_state_dict`); names and shapes must agree."""
-    from elf_tpu_torch.models.checkpoint import load_state_dict
+    """A NestedBottleneckNet from a checkpoint of the port's learner
+    (`checkpoint.save_checkpoint` or `save_params_checkpoint`, whose trees
+    are flat under the net's own names); names and shapes must agree."""
+    from elf_tpu_torch.models.checkpoint import read_checkpoint
 
+    payload = read_checkpoint(path)
     net = NestedBottleneckNet(cfg)
-    net.load_state_dict(load_state_dict(path))
+    net.load_state_dict({**payload["params"], **payload["batch_stats"]})
     return net.to(resolve_device(device))
 

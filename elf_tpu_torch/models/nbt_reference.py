@@ -22,7 +22,11 @@ kernels, no cache, no batching; `forward` sets TF32 off.
   valuepool [mean, mean (sqrt(A) - 14) / 10, mean ((sqrt(A) - 14)^2 / 100
             - 0.1)]
   act     mish (torch's F.mish) or relu; norm (x - mean) * (rsqrt(var +
-          eps) * weight) + bias with the running statistics, eps 1e-5
+          eps) * weight) + bias with the running statistics, eps 1e-5, or
+          in the training forward (`forward(..., stats={})`) with the
+          batch's mean and biased variance over (K, N, N), which it
+          writes into `stats` by the norm's name; the learner moves the
+          running statistics by them
 
 Departures from KataGo, each as the configuration states it: the input is
 the port's 18 AlphaGo Zero planes (no global input features, no ladder,
@@ -126,9 +130,15 @@ def _conv(W, name, x):
     return F.conv2d(x, w, None, padding=w.shape[-1] // 2)
 
 
-def _bn(W, name, x):
-    inv = torch.rsqrt(W[f"{name}.running_var"] + BN_EPS) * W[f"{name}.weight"]
-    mean, b = W[f"{name}.running_mean"], W[f"{name}.bias"]
+def _bn(W, name, x, stats=None):
+    if stats is None:
+        mean, var = W[f"{name}.running_mean"], W[f"{name}.running_var"]
+    else:
+        mean = x.mean(dim=(0, 2, 3))
+        var = x.var(dim=(0, 2, 3), unbiased=False)
+        stats[name] = (mean.detach(), var.detach())
+    inv = torch.rsqrt(var + BN_EPS) * W[f"{name}.weight"]
+    b = W[f"{name}.bias"]
     return (x - mean[:, None, None]) * inv[:, None, None] + b[:, None, None]
 
 
@@ -140,13 +150,18 @@ def _pool(g, value: bool):
     return torch.cat([mean, mean * (root / 10.0), third], 1)
 
 
-def forward(W: Dict[str, torch.Tensor], x: torch.Tensor, cfg: dict):
-    """x: f32 [K, N, N, planes] -> (log_pi [K, N*N + 1], value [K])."""
+def forward(W: Dict[str, torch.Tensor], x: torch.Tensor, cfg: dict,
+            stats=None):
+    """x: f32 [K, N, N, planes] -> (log_pi [K, N*N + 1], value [K]).  With
+    `stats` (a dict) the training forward: the batch statistics."""
     exact_fp32()
     act = _act(cfg)
 
+    def bn(name, h):
+        return _bn(W, name, h, stats)
+
     def nac(name, h):
-        return _conv(W, f"{name}.conv", act(_bn(W, f"{name}.norm", h)))
+        return _conv(W, f"{name}.conv", act(bn(f"{name}.norm", h)))
 
     h = _conv(W, "conv_spatial", x.permute(0, 3, 1, 2).float())
     for i in range(cfg["num_blocks"]):
@@ -155,26 +170,26 @@ def forward(W: Dict[str, torch.Tensor], x: torch.Tensor, cfg: dict):
         for j in range(cfg["inner_blocks"]):
             s = f"{b}.blockstack.{j}"
             if j == 0 and i + 1 in cfg["gpool_blocks"]:
-                a = act(_bn(W, f"{s}.norm1", r))
+                a = act(bn(f"{s}.norm1", r))
                 g = _conv(W, f"{s}.conv1g", a)
-                g = _pool(act(_bn(W, f"{s}.normg", g)), False)
+                g = _pool(act(bn(f"{s}.normg", g)), False)
                 t = _conv(W, f"{s}.conv1r", a) + F.linear(
                     g, W[f"{s}.linear_g.weight"])[:, :, None, None]
-                r = r + _conv(W, f"{s}.conv2", act(_bn(W, f"{s}.norm2", t)))
+                r = r + _conv(W, f"{s}.conv2", act(bn(f"{s}.norm2", t)))
             else:
                 r = r + nac(f"{s}.normactconv2", nac(f"{s}.normactconv1", r))
         h = h + nac(f"{b}.normactconvq", r)
-    h = act(_bn(W, "norm_trunkfinal", h))
+    h = act(bn("norm_trunkfinal", h))
     K = h.shape[0]
-    g = _pool(act(_bn(W, "policy_head.normg",
+    g = _pool(act(bn("policy_head.normg",
                       _conv(W, "policy_head.conv1g", h))), False)
     p = _conv(W, "policy_head.conv1p", h) + F.linear(
         g, W["policy_head.linear_g.weight"])[:, :, None, None]
-    p = _conv(W, "policy_head.conv2p", act(_bn(W, "policy_head.norm2", p)))
+    p = _conv(W, "policy_head.conv2p", act(bn("policy_head.norm2", p)))
     pass_ = F.linear(g, W["policy_head.linear_pass.weight"],
                      W["policy_head.linear_pass.bias"])
     log_pi = F.log_softmax(torch.cat([p.reshape(K, -1), pass_], 1), dim=-1)
-    v = _pool(act(_bn(W, "value_head.norm1",
+    v = _pool(act(bn("value_head.norm1",
                       _conv(W, "value_head.conv1", h))), True)
     v = act(F.linear(v, W["value_head.linear2.weight"],
                      W["value_head.linear2.bias"]))

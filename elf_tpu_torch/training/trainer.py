@@ -30,11 +30,8 @@ from elf_tpu_torch.models.checkpoint import (  # noqa: F401  (re-exported)
     save_params_checkpoint,
     version_from_path,
 )
-from elf_tpu_torch.models.resnet import (
-    ModelConfig,
-    PolicyValueNet,
-    init_weights,
-)
+from elf_tpu_torch.models.registry import model_class
+from elf_tpu_torch.models.resnet import init_weights
 from elf_tpu_torch.training.loss import (
     mcts_prediction_loss,
     multiple_prediction_loss,
@@ -45,7 +42,7 @@ ADAM_B1, ADAM_B2 = 0.9, 0.999      # optax.adam's defaults
 
 @dataclasses.dataclass
 class TrainState:
-    net: PolicyValueNet     # parameters and BN statistics
+    net: torch.nn.Module    # parameters and BN statistics
     opt_state: dict         # the optax chain's state dict (see Optimizer)
     step: int
 
@@ -65,7 +62,7 @@ class Optimizer:
         self.adam = opts.opt_method == "adam"
         self.index = int(opts.grad_clip_norm > 0) + int(opts.weight_decay > 0)
 
-    def init(self, net: PolicyValueNet) -> dict:
+    def init(self, net: torch.nn.Module) -> dict:
         def zeros():
             return {n: torch.zeros_like(p) for n, p in net.named_parameters()}
 
@@ -78,7 +75,7 @@ class Optimizer:
         state[str(self.index)] = {"0": inner, "1": {}}
         return state
 
-    def update(self, net: PolicyValueNet, grads: List[torch.Tensor],
+    def update(self, net: torch.nn.Module, grads: List[torch.Tensor],
                grad_norm: torch.Tensor, opt_state: dict) -> None:
         """One optimizer step on `net` in place.  `grads` follow
         `net.named_parameters()` and are overwritten; `grad_norm` is their
@@ -129,7 +126,11 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 
 class Trainer:
-    def __init__(self, cfg: ModelConfig, opts: TrainOptions,
+    """The learner of the net that `cfg` configures (`registry.model_class`:
+    a `ModelConfig` gives a PolicyValueNet, an `NbtConfig` a
+    NestedBottleneckNet)."""
+
+    def __init__(self, cfg, opts: TrainOptions,
                  device: DeviceLike = "cuda"):
         self.cfg = cfg
         self.opts = opts
@@ -139,7 +140,7 @@ class Trainer:
     def init_state(self, generator: torch.Generator) -> TrainState:
         """Fresh state: flax's default initialisation drawn from
         `generator` (a CPU generator), zero optimizer slots, step 0."""
-        net = PolicyValueNet(self.cfg)
+        net = model_class(self.cfg)(self.cfg)
         init_weights(net, generator)
         net = net.to(self.device)
         return TrainState(net=net, opt_state=self.tx.init(net), step=0)

@@ -12,9 +12,8 @@ games on a second, noise-free actor that never resigns; ship the records.
 Same options as the JAX script, plus `--device` (default `cuda`; the CPU
 runs only when asked for with `--device cpu`).  `--model kata_nbt` plays
 with KataGo's nested-bottleneck net (`elf_tpu_torch/models/nbt.py`,
-`b18c384nbt`'s widths), loading each version from a torch state-dict file
-`save-<version>.bin` (`checkpoint.save_state_dict`); it has no learner, so
-the weights come from elsewhere.  SIGINT or SIGTERM ends the
+`b18c384nbt`'s widths); each version is read by the model family's reader
+(`registry.ModelFamily.load_model`).  SIGINT or SIGTERM ends the
 play loop after the current round (a second signal at once); the client
 then logs one `summary {...}` JSON line: stage timers (`selfplay_moves`,
 `eval_moves`, `ship_records`), board moves per second, completed games,
@@ -50,9 +49,8 @@ from elf_tpu_torch.control.client import SelfplayClient
 from elf_tpu_torch.device import resolve_device
 from elf_tpu_torch.env.go import kernels
 from elf_tpu_torch.logging_utils import configure, get_indexed_logger
-from elf_tpu_torch.models import nbt
 from elf_tpu_torch.models.registry import get_model_family, make_trainer
-from elf_tpu_torch.models.resnet import eval_fn_builder, load_model, serving_copy
+from elf_tpu_torch.models.resnet import eval_fn_builder, serving_copy
 from elf_tpu_torch.profiling import Profiler
 from elf_tpu_torch.search.mcts import MCTSConfig
 from elf_tpu_torch.selfplay.actor import (
@@ -86,17 +84,15 @@ def parse_args(argv=None):
 def net_reader(g: GameOptions, to: TrainOptions, device):
     """(feature_set, eval_raw, read_net) of the model family `g.model`:
     the pair evaluator's forward `eval_raw(net, batch_stats, features)` and
-    `read_net(path)`, the net of a checkpoint file on `device`."""
-    if get_model_family(g.model).model_cls is nbt.NestedBottleneckNet:
-        cfg = nbt.NbtConfig(board_size=g.board_size)
-        return ("agz", lambda net, batch_stats, feats: net(feats),
-                lambda path: nbt.load_model(path, cfg, device))
+    `read_net(path)`, the net of a checkpoint file on `device`, by the
+    family's reader."""
     trainer, _train_mode, feature_set = make_trainer(
         g.model, g.board_size, to, use_df_feature=g.use_df_feature,
         device=device,
     )
+    load = get_model_family(g.model).load_model
     return (feature_set, trainer.make_eval_fn(),
-            lambda path: load_model(path, trainer.cfg, device))
+            lambda path: load(path, trainer.cfg, device))
 
 
 def main(argv=None):

@@ -11,8 +11,11 @@ clients (`scripts/selfplay_client_torch.py`) play.
 Same options as the JAX script, plus `--device` (default `cuda`; the CPU
 runs only when asked for with `--device cpu`).  `--model df_pred` trains
 supervised (the offline train mode, MultiplePrediction on the records'
-moves); `--model df_policy` raises ValueError, as the JAX server does.  `--load` takes checkpoints
-of either package.
+moves); `--model kata_nbt` trains KataGo's b18c384nbt
+(`elf_tpu_torch/models/nbt.py`; its checkpoints hold the net's trees under
+its own state-dict names, which the client reads through the registry);
+`--model df_policy` raises ValueError, as the JAX server does.  `--load`
+takes checkpoints of either package.
 
 The learner over several cards (`elf_tpu_torch.parallel`): one process
 per card.  `--use_mesh 1` with n > 1 visible cards spawns n ranks on this

@@ -830,12 +830,12 @@ def test_same_argv_parses_to_same_values():
 
 def test_registry_matches_jax_and_refuses_unported():
     # the port's one family more, KataGo's nested-bottleneck net, has no
-    # JAX twin and no learner
+    # JAX twin; its learner takes the AlphaZero train mode
     assert sorted(tregistry.MODELS) == sorted([*jregistry.MODELS,
                                                "kata_nbt"])
-    with pytest.raises(ValueError, match="no learner"):
-        tregistry.make_trainer("kata_nbt", SIZE, TrainOptions(),
-                               device="cpu")
+    _, mode, fs = tregistry.make_trainer("kata_nbt", SIZE, TrainOptions(),
+                                         device="cpu")
+    assert (mode, fs) == ("mcts", "agz")
     for name in jregistry.MODELS:
         for df in (False, True):
             assert tregistry.family_feature_set(name, df) == \

@@ -452,6 +452,73 @@ def test_nbt_serving_forward_close_to_the_modules(dev, B):
     assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
 
 
+def test_nbt_train_step_on_card_close_to_the_fp32_reference(dev):
+    """One b18c384nbt learner step with remat at batch 32 on the card
+    (bf16 NHWC convolutions, fp32 norms) against the plain float32
+    reference's gradient at the same weights, by the learner cell's gap
+    measures (`perfbench/limits/go19_b18c384nbt_learner.
+    train_family_b2048.json`: each leaf's gradient norm against the larger
+    of its own and the median leaf's, and the norm over all leaves); the
+    step counts 232 norm-and-activation calls and 14 poolings."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from elf_tpu_torch import profiling
+    from elf_tpu_torch.config import TrainOptions
+    from elf_tpu_torch.models import nbt, nbt_reference
+    from elf_tpu_torch.training.loss import mcts_prediction_loss
+    from elf_tpu_torch.training.trainer import Trainer
+
+    path = os.path.join(os.path.dirname(__file__), "..", "perfbench",
+                        "limits",
+                        "go19_b18c384nbt_learner.train_family_b2048.json")
+    with open(path) as f:
+        limits = json.load(f)
+    cfg = nbt.NbtConfig(remat=True)
+    trainer = Trainer(cfg, TrainOptions(batchsize=32), device=dev)
+    state = trainer.init_state(torch.Generator().manual_seed(2))
+    W0 = {k: v.clone() for k, v in state.net.state_dict().items()}
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = (torch.rand((32, 19, 19, 18), generator=g, device=dev)
+         < 0.3).float()
+    x[..., 16] = 1.0
+    x[..., 17] = 0.0
+    pi = torch.rand((32, 362), generator=g, device=dev) ** 4
+    pi = pi / pi.sum(1, keepdim=True)
+    z = torch.where(torch.rand(32, generator=g, device=dev) < 0.5, 1.0, -1.0)
+
+    def grads(forward, params):
+        log_pi, value = forward()
+        loss, _ = mcts_prediction_loss(log_pi, value, pi, z)
+        return [float(t.norm()) for t in torch.autograd.grad(loss, params)]
+
+    got = grads(lambda: state.net(x, train=True),
+                list(state.net.parameters()))
+    W = {k: v.clone().requires_grad_(not k.endswith(("running_mean",
+                                                     "running_var")))
+         for k, v in W0.items()}
+    names = [n for n, _ in state.net.named_parameters()]
+    want = grads(lambda: nbt_reference.forward(
+        W, x, dataclasses.asdict(cfg), stats={}), [W[n] for n in names])
+    med = float(np.median(want))
+    moved = [i for i, w in enumerate(want) if w >= 1e-3 * med]
+    gap = max(abs(got[i] - want[i]) / max(want[i], med) for i in moved)
+    glob = lambda v: float(np.sqrt(sum(v[i] ** 2 for i in moved)))  # noqa
+    gap_global = abs(glob(got) - glob(want)) / glob(want)
+    assert gap <= limits["grad_gap"], gap
+    assert gap_global <= limits["grad_gap_global"], gap_global
+    step = trainer.make_train_step()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        state, stats = step(state, x, pi, z)
+    torch.cuda.synchronize(dev)
+    c = profiling.counters()
+    profiling.reset()
+    assert c == {"net.train_normacts": 232, "net.train_gpools": 14}
+    assert torch.isfinite(stats["loss/total"]) and state.step == 1
+
+
 def test_step_core_on_card_matches_cpu(dev):
     """Random legal games: the engine on the card (kernels) and on the CPU
     (plain versions) agree on every field."""

@@ -7,8 +7,9 @@ The forward against the plain float32 reference
 (`models/nbt_reference.py`) and the benchmark's copy of it, the serving
 copy's CPU path (the plain epilogues) against the modules, each plain
 epilogue mode against the formula it implements, the state-dict names,
-the counters, the registry, the state-dict checkpoint and the self-play
-client's reader, and `SelfplayActor.play_moves` through the benchmark's
+the counters, the registry and its learner, the training forward's
+running statistics, the learner's checkpoint and the self-play client's
+reader, and `SelfplayActor.play_moves` through the benchmark's
 generator.  The kernels are held against the plain versions on the card by
 `tests/test_torch_cuda.py` and `chip_smoke.py` (phase 3c).
 
@@ -33,9 +34,10 @@ from elf_tpu_torch import profiling
 from elf_tpu_torch.config import GameOptions, TrainOptions
 from elf_tpu_torch.models import epilogue as epi
 from elf_tpu_torch.models import nbt, nbt_reference
-from elf_tpu_torch.models.checkpoint import save_state_dict
+from elf_tpu_torch.models.checkpoint import save_checkpoint
 from elf_tpu_torch.models.registry import get_model_family, make_trainer
 from elf_tpu_torch.models.resnet import BN_EPS, BatchNorm, serving_copy
+from elf_tpu_torch.training.trainer import Trainer, TrainState
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = os.path.join(ROOT, "perfbench")
@@ -141,10 +143,35 @@ def test_bf16_serving_path_gives_the_modules_bits(act):
     assert 0 < float((want[0] - ref[0]).abs().max()) < 0.1
 
 
-def test_no_training_forward():
-    net = _random_net(SMALL, 0)
-    with pytest.raises(ValueError, match="no training forward"):
-        net(_features(SMALL, 1, 0), train=True)
+def test_training_forward_moves_only_the_running_statistics():
+    """A training forward (the learner's cooldown pass) normalises by the
+    batch and moves each norm's running statistics by the momentum rule,
+    once, and no parameter; the eval forward then reads the new
+    statistics."""
+    cfg = dataclasses.replace(SMALL, remat=True, bn_momentum=0.25)
+    net = _random_net(cfg, 0)
+    x = _features(cfg, 5, 0)
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    stats = {}
+    with torch.no_grad():
+        train_out = net(x, train=True)
+        nbt_reference.forward(before, x, _cfg_dict(cfg), stats=stats)
+    after = net.state_dict()
+    assert len(stats) == len(net.serving_norms()) == 17
+    for name, (mean, var) in stats.items():
+        for field, batch_stat in (("running_mean", mean),
+                                  ("running_var", var)):
+            want = 0.75 * before[f"{name}.{field}"] + 0.25 * batch_stat
+            assert torch.allclose(after[f"{name}.{field}"], want, rtol=0,
+                                  atol=1e-6)
+    for k, v in net.named_parameters():
+        assert torch.equal(v, before[k])
+    with torch.no_grad():
+        eval_out = net(x)
+        ref = nbt_reference.forward(dict(after), x, _cfg_dict(cfg))
+    for a, b, t in zip(eval_out, ref, train_out):
+        assert float((a - b).abs().max()) <= FP32_TOL
+        assert not torch.equal(a, t)
 
 
 def _bn(C: int, seed: int):
@@ -339,27 +366,46 @@ def test_counters_count_epilogues_and_pools_per_forward(cfg, epilogues,
                  "net.gpools": 2 * gpools}
 
 
-def test_make_trainer_raises_for_the_family():
+def test_make_trainer_builds_the_familys_learner():
+    """`make_trainer("kata_nbt")`: the AlphaZero train mode on the AGZ
+    planes and a Trainer of b18c384nbt at its published widths."""
     fam = get_model_family("kata_nbt")
     assert fam.model_cls is nbt.NestedBottleneckNet
     assert fam.config_cls is nbt.NbtConfig and fam.feature_set == "agz"
-    with pytest.raises(ValueError, match="no learner"):
-        make_trainer("kata_nbt", 19, TrainOptions(), device="cpu")
+    assert fam.load_model is nbt.load_model
+    trainer, mode, feature_set = make_trainer("kata_nbt", 19, TrainOptions(),
+                                              device="cpu")
+    assert (mode, feature_set) == ("mcts", "agz")
+    assert trainer.cfg == nbt.NbtConfig()
+    assert (trainer.cfg.trunk_channels, trainer.cfg.mid_channels,
+            trainer.cfg.gpool_channels, trainer.cfg.num_blocks) == (
+                384, 192, 64, 18)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    assert isinstance(state.net, nbt.NestedBottleneckNet)
+    assert set(state.opt_state["1"]["0"]["trace"]) == {
+        n for n, _ in state.net.named_parameters()}
 
 
 def test_state_dict_checkpoint_and_the_clients_reader(tmp_path):
+    """A learner's checkpoint holds the net under its own state-dict
+    names; `nbt.load_model` and the client's reader read it back."""
     from scripts.selfplay_client_torch import net_reader
 
+    def saved(path, net):
+        return save_checkpoint(path, TrainState(
+            net=net, opt_state=Trainer(net.cfg, TrainOptions(),
+                                       "cpu").tx.init(net), step=7))
+
     net = _random_net(dataclasses.replace(SMALL, use_bf16=True), 2)
-    path = save_state_dict(str(tmp_path / "save-7.bin"), net)
+    path = saved(str(tmp_path / "small"), net)
     back = nbt.load_model(path, net.cfg, "cpu")
     assert all(torch.equal(a, b) for a, b in zip(
         net.state_dict().values(), back.state_dict().values()))
     g = GameOptions(model="kata_nbt", board_size=19)
     feature_set, eval_raw, read_net = net_reader(g, TrainOptions(), "cpu")
     assert feature_set == "agz"
-    full = read_net(save_state_dict(str(tmp_path / "full.bin"),
-                                    nbt.NestedBottleneckNet(nbt.NbtConfig())))
+    full = read_net(saved(str(tmp_path / "full"),
+                          nbt.NestedBottleneckNet(nbt.NbtConfig())))
     assert isinstance(full, nbt.NestedBottleneckNet)
     assert full.cfg == nbt.NbtConfig()
     x = _features(SMALL, 2, 1)

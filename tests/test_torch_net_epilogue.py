@@ -180,15 +180,6 @@ def _record_serves(monkeypatch) -> list:
     return calls
 
 
-def _forward(net, x, train=False):
-    """net's forward; nbt has no training forward to run."""
-    if train and isinstance(net, nbt.NestedBottleneckNet):
-        with pytest.raises(ValueError, match="no training forward"):
-            net(x, train=True)
-        return
-    net(x, train=train)
-
-
 @pytest.mark.parametrize("case", ["served", "cpu input", "unfrozen",
                                   "odd width", "tp", "sync", "channels",
                                   "served copy with sync"])
@@ -216,20 +207,20 @@ def test_which_forwards_take_the_serving_path(kind, case, monkeypatch):
         # the learner's net: not a serving copy; its forward, and any
         # training forward, runs the modules
         assert not net.serves
-        _forward(net, x)
-        _forward(net, x, train=True)
+        net(x)
+        net(x, train=True)
         # a copy of a copy serves too, with its own multipliers
         again = serving_copy(frozen)
         for a, b in zip(again.serving_norms(), frozen.serving_norms()):
             assert a.serving_mul is not b.serving_mul
             assert torch.equal(a.serving_mul, b.serving_mul)
         # a serving copy's training forward runs the modules, batch
-        # statistics and all (nbt has no training forward)
+        # statistics and all
         before = frozen.serving_norms()[0].running_mean.clone()
-        _forward(frozen, x, train=True)
+        frozen(x, train=True)
         assert calls == [frozen]
-        if kind == "resnet":
-            assert not torch.equal(before, frozen.init_bn.running_mean)
+        assert not torch.equal(before,
+                               frozen.serving_norms()[0].running_mean)
         return
     if case == "unfrozen":
         copy_ = copy.deepcopy(net)
@@ -252,7 +243,7 @@ def test_which_forwards_take_the_serving_path(kind, case, monkeypatch):
                 None)
     assert not copy_.serves
     assert all(bn.serving_mul is None for bn in copy_.serving_norms())
-    _forward(copy_, x)
+    copy_(x)
     assert calls == []
 
 
