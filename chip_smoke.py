@@ -59,6 +59,16 @@ Phases:
      among its top kernels.  `python3 chip_smoke.py --only
      train_epilogue` runs phases 1 and 3d alone and prints their kernels
      line;
+ 3e. nbt train (after 3c): the nbt learner's norm kernels
+     (`csrc/nbt_train_epilogue.cu` with the serving nbt kernels) at 19x19
+     B = 2048, bf16, mish: each mode's forward and backward at 192 and 384
+     channels by graph replay beside their byte bounds, their host cost
+     and the torch ops' time; b18c384nbt's remat step at batch 2048 on
+     the kernels against the torch ops, in turns, with its peak memory,
+     232 statistics and 118 backward launches and its counters, one step
+     profiled.  `python3 chip_smoke.py --only nbt_train` runs it alone
+     (the card tests, `tests/test_torch_nbt_train_epilogue.py -m cuda`,
+     hold the values);
  4b. nbt slice (after the slice): the same net drives SelfplayActor
      through `eval_fn_builder` as the slice does, with the launch counts
      set to 0 just before; nbt_normact must launch 110 times and nbt_pool
@@ -999,6 +1009,301 @@ def train_epilogue_phase(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3b': the nested-bottleneck net's learner kernels
+# ---------------------------------------------------------------------------
+
+NBT_TRAIN_MODES = ("normact", "skip", "row", "gpool", "value")
+NBT_TRAIN_WIDTHS = (192, 384)
+# activation elements each pass must move once (the forward: statistics and
+# apply as one pass; the backward: reduce and apply as one), by mode
+NBT_TRAIN_UNITS = {"normact": (2, 3), "skip": (4, 4), "row": (2, 3),
+                   "gpool": (1, 2), "value": (1, 2)}
+
+
+def nbt_train_errors(mode: str, outs, stats, want_stats, own, got, ref,
+                     x) -> dict:
+    """The nbt learner's kernels against their plain versions on one
+    layer: the statistics and the forward must agree bit for bit, the
+    backward within the card tests' bf16 tolerances (d v: 2^-7 of the
+    value plus 1e-3 of the largest; the weight's and bias's gradients 1e-4
+    of the largest; the row bias's that plus 2^-20 of the sum of the
+    board's |d v|); `fail` beyond them.  Returns the largest absolute
+    differences."""
+    where = f"nbt train: {mode} {tuple(x.shape)}"
+    if not all(torch.equal(a, b) for a, b in zip(stats, want_stats)):
+        fail(f"{where}: the statistics differ from the plain version's")
+    if not all(torch.equal(a, b) for a, b in zip(outs, own)):
+        fail(f"{where}: the forward differs from the plain apply's")
+
+    def over(a, b, tol_rel, tol_top, extra=0.0):
+        a, b = a.double(), b.double()
+        bound = tol_rel * b.abs() + tol_top * float(b.abs().max()) + extra
+        return float((a - b).abs().max()), bool(((a - b).abs() > bound).any())
+
+    e = {"forward": max(float((a.double() - b.double()).abs().max())
+                        for a, b in zip(outs, own))}
+    e["d_v"], bad = over(got[0], ref[0], 2.0 ** -7, 1e-3)
+    for name, a, b in zip(("d_weight", "d_bias"), got[1:3], ref[1:3]):
+        e[name], worse = over(a, b, 0.0, 1e-4)
+        bad |= worse
+    if mode == "row":
+        terms = ref[0].double().abs().sum((2, 3))
+        e["d_rowbias"], worse = over(got[3], ref[3], 0.0, 1e-4,
+                                     2.0 ** -20 * terms)
+        bad |= worse
+    if bad:
+        fail(f"{where}: the backward differs from the plain version's "
+             f"beyond the tolerances: largest differences {e}")
+    return e
+
+
+def nbt_step_grads(net, batch) -> list:
+    """Each parameter's gradient norm of one training step's loss on
+    `batch`; the net's running statistics are put back after it."""
+    from elf_tpu_torch.training.loss import mcts_prediction_loss
+
+    buffers = {k: b.clone() for k, b in net.named_buffers()}
+    log_pi, value = net(batch[0], train=True)
+    loss, _ = mcts_prediction_loss(log_pi, value, batch[1], batch[2])
+    grads = torch.autograd.grad(loss, list(net.parameters()))
+    net.load_state_dict(buffers, strict=False)
+    return [float(g.norm()) for g in grads]
+
+
+def nbt_grad_gaps(got: list, want: list) -> dict:
+    """The learner cell's gradient gaps (`perfbench/harness/train.py`)
+    between two steps' gradient norms by leaf: the worst leaf against the
+    larger of its own and the median leaf's norm, and the norm over all
+    leaves, leaves under a thousandth of the median left out."""
+    med = float(np.median(want))
+    moved = [i for i, w in enumerate(want) if w >= 1e-3 * med]
+
+    def glob(norms):
+        return float(np.sqrt(sum(norms[i] ** 2 for i in moved)))
+
+    return {"grad_gap": max(abs(got[i] - want[i]) / max(want[i], med)
+                            for i in moved),
+            "grad_gap_global": abs(glob(got) - glob(want)) / glob(want)}
+
+
+def nbt_train_phase(card: str) -> dict:
+    """The nbt learner's norm kernels (`csrc/nbt_train_epilogue.cu`, the
+    serving `nbt_normact_kernel` / `nbt_pool_kernel` for the apply pass)
+    at 19x19 B = 2048, bf16, mish, each mode at 192 and 384 channels:
+    first their values against the plain versions (`nbt_train_errors`:
+    statistics and forward bit for bit, the backward within the card
+    tests' tolerances); then the forward (statistics + apply) and the
+    backward (reduce + apply) timed by graph replay beside their byte
+    bounds (each activation read and written once a pair at 3.35 TB/s;
+    the row bias and pooled vectors aside), their host cost per call, and
+    the torch ops' forward and forward + backward (the training forward
+    without the kernels, on the card); last, b18c384nbt's remat step at
+    batch 2048 on the kernels against the torch ops (the net's
+    `train_kernels` off), in turns, with its peak memory, launches and
+    counters, its gradients against the torch ops' by the learner cell's
+    gap limits, and one step profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from elf_tpu_torch import profiling
+    from elf_tpu_torch.config import TrainOptions
+    from elf_tpu_torch.models import epilogue as epi
+    from elf_tpu_torch.models import nbt
+    from elf_tpu_torch.models.resnet import BatchNorm
+    from elf_tpu_torch.training.trainer import Trainer
+
+    timings, errors = {}, {}
+    B, hw = REMAT_BATCH, 19
+    for C in NBT_TRAIN_WIDTHS:
+        g = torch.Generator(device="cuda").manual_seed(C)
+        shape = (B, C, hw, hw)
+
+        def act_like():
+            return torch.randn(shape, generator=g, device="cuda").to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+        v, skip, up = act_like(), act_like(), act_like()
+        rowbias = torch.randn(B, C, generator=g, device="cuda") * 0.3
+        weight = torch.randn(C, generator=g, device="cuda") * 0.3 + 1.0
+        bias = torch.randn(C, generator=g, device="cuda") * 0.3
+        gp = torch.randn(B, 3 * C, generator=g, device="cuda")
+        n = v.numel()
+        for mode in NBT_TRAIN_MODES:
+            pool = mode in ("gpool", "value")
+            kw = dict(skip=skip if mode == "skip" else None,
+                      rowbias=rowbias if mode == "row" else None)
+
+            def fwd():
+                with torch.no_grad():
+                    if pool:
+                        return epi.nbt_train_pool(v, weight, bias, "mish",
+                                                  mode)
+                    return epi.nbt_train_normact(v, weight, bias, "mish",
+                                                 **kw)
+
+            *outs, mean, var = fwd()
+            stats = epi.nbt_train_stats_cuda(v, weight, kw["skip"],
+                                             kw["rowbias"])
+            _, _, mul, gate = stats
+            want_stats = epi.nbt_train_stats_ref(
+                v, weight, kw["skip"], kw["rowbias"],
+                epi.nbt_train_layout(v, kw["rowbias"] is not None))
+            if pool:
+                own = [epi.pool_ref(v, mean, mul, bias, "mish", mode)]
+            else:
+                own = epi.normact_ref(v, mean, mul, bias, "mish",
+                                      kw["skip"], kw["rowbias"])
+                own = list(own) if mode == "skip" else [own]
+            x = outs[0] if mode == "skip" else v
+            if pool:
+                dmean, dmax = epi.pooled_grads(gp, hw * hw, mode)
+                gargs = (mode, "mish", x, None, mean, var, mul, gate, bias,
+                         None, None, dmean, dmax)
+            else:
+                gargs = (mode, "mish", x, kw["rowbias"], mean, var, mul,
+                         gate, bias, up, up if mode == "skip" else None,
+                         None, None)
+
+            e = nbt_train_errors(
+                mode, [*outs, mean, var], stats, want_stats,
+                [*own, stats[0], stats[1]], epi.nbt_train_grad_cuda(*gargs),
+                epi.nbt_train_grad_ref(*gargs), x)
+            errors[f"{mode} C={C}"] = e
+            log(f"nbt train: {hw}x{hw} B {B} C {C} {mode}: against the plain "
+                "version, statistics and forward bit for bit; largest "
+                "differences " + ", ".join(f"{k} {val:.3g}"
+                                           for k, val in e.items()))
+            del stats, want_stats, own
+
+            def bwd():
+                epi.nbt_train_grad_cuda(*gargs)
+
+            def torch_ops(backward: bool):
+                norm = BatchNorm(C).cuda()
+                ins = [t.detach().requires_grad_(backward) if t is not None
+                       else None for t in (v, kw["skip"], kw["rowbias"])]
+                with torch.set_grad_enabled(backward):
+                    ep = nbt._Training("mish", kernels=False)
+                    out = (ep.pool(ins[0], norm, mode) if pool else
+                           ep.normact(ins[0], norm, ins[1], ins[2]))
+                    if backward:
+                        out = out[-1] if isinstance(out, tuple) else out
+                        out.backward(gp if pool else up)
+
+            units = NBT_TRAIN_UNITS[mode]
+            extra = B * C * 4 if mode == "row" else 0
+            nbytes = {"forward": n * 2 * units[0] + extra,
+                      "backward": n * 2 * units[1] + 2 * extra}
+            for what, fn in (("forward", fwd), ("backward", bwd)):
+                ms = [graph_ms(fn, 10) for _ in range(2)]
+                r = dict(bytes=nbytes[what],
+                         bound_ms=nbytes[what] / HBM_BYTES_PER_S * 1e3,
+                         ms=float(np.mean(ms)), ms_turns=ms,
+                         host_ms=host_ms(fn, 50))
+                r["bound_share"] = r["bound_ms"] / r["ms"]
+                timings[f"{mode} C={C} {what}"] = r
+                log(f"nbt train: {hw}x{hw} B {B} C {C} {mode} {what}: "
+                    f"device {r['ms']:.6f} ms (graph replay; turns "
+                    f"{', '.join(f'{t:.6f}' for t in ms)}), bound "
+                    f"{r['bound_ms']:.6f} ms ({r['bytes']} bytes; "
+                    f"{100 * r['bound_share']:.1f} % of it), host "
+                    f"{r['host_ms']:.6f} ms/call")
+            plain = dict(forward_ms=cuda_time_ms(lambda: torch_ops(False), 3),
+                         forward_backward_ms=cuda_time_ms(
+                             lambda: torch_ops(True), 3))
+            timings[f"{mode} C={C} torch ops"] = plain
+            log(f"nbt train: {hw}x{hw} B {B} C {C} {mode}: the torch ops "
+                f"{plain['forward_ms']:.4f} ms forward, "
+                f"{plain['forward_backward_ms']:.4f} ms forward + backward "
+                "(CUDA events)")
+        del v, skip, up, rowbias, gp, outs, gargs
+        torch.cuda.empty_cache()
+
+    # b18c384nbt's remat step at batch 2048, kernels against torch's ops
+    cfg = nbt.NbtConfig(remat=True)
+    tr = Trainer(cfg, TrainOptions(batchsize=B), device="cuda")
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    batch = synthetic_batch(B, 5)
+    step = {"kernels": [], "torch ops": []}
+    peak = {}
+    for kind in ("torch ops", "kernels", "kernels", "torch ops"):
+        state.net.train_kernels = kind == "kernels"
+        med, ms, pk, _ = time_steps(tr, state, batch, 1, 3)
+        step[kind].append(med)
+        peak[kind] = max(peak.get(kind, 0), pk)
+    with open(ROOT / "perfbench" / "limits"
+              / "go19_b18c384nbt_learner.train_family_b2048.json") as f:
+        limits = json.load(f)
+    state.net.train_kernels = False
+    want = nbt_step_grads(state.net, batch)
+    state.net.train_kernels = True
+    gaps = nbt_grad_gaps(nbt_step_grads(state.net, batch), want)
+    over = {k: (g, limits[k]) for k, g in gaps.items() if not g <= limits[k]}
+    if over:
+        fail(f"nbt train: the remat step's gradients on the kernels differ "
+             f"from the torch ops' beyond the learner cell's limits: (gap, "
+             f"limit) {over}")
+    log(f"nbt train: the b18c384nbt remat step at B {B}, kernels against "
+        f"torch ops: grad_gap {gaps['grad_gap']:.6f} (limit "
+        f"{limits['grad_gap']}), grad_gap_global "
+        f"{gaps['grad_gap_global']:.6f} (limit {limits['grad_gap_global']})")
+    launched = dict(epi.launches)
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        tr.make_train_step()(state, *batch)
+        torch.cuda.synchronize()
+    counters = profiling.counters()
+    profiling.reset()
+    ran = {k: epi.launches[k] - launched[k] for k in launched}
+    want = {"net.train_normacts": 232, "net.train_normact_kernels": 232,
+            "net.train_normact_grads": 118, "net.train_gpools": 14}
+    if counters != want or ran["nbt_train_stats"] != 232 \
+            or ran["nbt_train_grad"] != 118:
+        fail(f"nbt train: a remat step counted {counters} and launched "
+             f"{ran}, expected {want}")
+    prof = profile_call(lambda: tr.make_train_step()(state, *batch),
+                        f"one b18c384nbt remat step at B {B} on the "
+                        "learner's kernels", card)
+    kern = float(np.mean(step["kernels"]))
+    ops = float(np.mean(step["torch ops"]))
+    log(f"nbt train: the b18c384nbt remat step at B {B}: kernels "
+        f"{kern:.2f} ms ({B / kern * 1e3:.1f} positions/s, peak "
+        f"{peak['kernels'] / 2 ** 30:.2f} GiB), torch ops {ops:.2f} ms "
+        f"({B / ops * 1e3:.1f} positions/s, peak "
+        f"{peak['torch ops'] / 2 ** 30:.2f} GiB), x {ops / kern:.3f} (CUDA "
+        f"events, medians of 3 in turns); launches a step {ran}, on {card}")
+    del tr, state, batch
+    torch.cuda.empty_cache()
+    return {"timings": timings, "errors": errors,
+            "step": dict(ms=step, peak_bytes=peak, launches=ran,
+                         counters=counters, gaps=gaps, profile=prof)}
+
+
+def nbt_train_rows(phase: dict) -> list:
+    """The kernels line's rows of the nbt learner's kernels: each mode's
+    forward and backward at 19x19 B = 2048, C = 192."""
+    t, rows = phase["timings"], []
+    for mode in NBT_TRAIN_MODES:
+        ops = t[f"{mode} C=192 torch ops"]
+        for what in ("forward", "backward"):
+            r = t[f"{mode} C=192 {what}"]
+            e = phase["errors"][f"{mode} C=192"]
+            rows.append({
+                "name": f"nbt_train_{mode}_{what}", "route": "cuda",
+                "max_abs_err": e["forward"] if what == "forward"
+                else max(v for k, v in e.items() if k != "forward"),
+                "source": "elf_tpu_torch/csrc/nbt_train_epilogue.cu"
+                          + (" + nbt_epilogue.cu" if what == "forward"
+                             else ""),
+                "replaces": None, "launches": phase["step"]["launches"],
+                "ms": r["ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
+                "plain_ms": ops["forward_ms"] if what == "forward"
+                else ops["forward_backward_ms"] - ops["forward_ms"],
+                "library_ms": None, "host_ms": r["host_ms"],
+                "shape": f"19x19 C=192 B={REMAT_BATCH} bf16 mish"})
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 3c: the nested-bottleneck net's epilogue kernels
 # ---------------------------------------------------------------------------
 
@@ -1235,7 +1540,8 @@ def nbt_phase(card: str) -> dict:
     if counts != {"net.forwards": 1, "net.epilogues": 118, "net.gpools": 8} \
             or ran != {"net_epilogue": 0, "net_train_stats": 0,
                        "net_train_grad": 0, "nbt_normact": 110,
-                       "nbt_pool": 8}:
+                       "nbt_pool": 8, "nbt_train_stats": 0,
+                       "nbt_train_grad": 0}:
         fail(f"nbt: counters {counts}, kernel launches {ran} for one "
              "forward")
     kernels_ms = {}
@@ -4617,12 +4923,21 @@ def main() -> int:
     log(f"card: {card} | torch {torch.__version__} | CUDA "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
-    if sys.argv[1:] in (["--only", "nbt"], ["--only", "train_epilogue"]):
+    if sys.argv[1:] in (["--only", "nbt"], ["--only", "train_epilogue"],
+                        ["--only", "nbt_train"]):
         only = sys.argv[2]
         if only == "nbt":
             result = {"card": card, "kind": kind, "nbt": nbt_phase(card),
                       "nbt_slice": nbt_slice_phase(card)}
             rows = nbt_kernel_rows(result["nbt"], result["nbt_slice"])
+        elif only == "nbt_train":
+            for line in _build.build("nbt_train_epilogue")[1].splitlines():
+                if any(w in line for w in ("entry function", "registers",
+                                           "spill", "smem")):
+                    log(f"build: {line.strip()}")
+            result = {"card": card, "kind": kind,
+                      "nbt_train": nbt_train_phase(card)}
+            rows = nbt_train_rows(result["nbt_train"])
         else:
             for name in ("net_epilogue", "net_train_epilogue"):
                 for line in _build.build(name)[1].splitlines():
@@ -4660,6 +4975,7 @@ def main() -> int:
     result["epilogue"] = epilogue_phase(card)
     result["train_epilogue"] = train_epilogue_phase(card)
     result["nbt"] = nbt_phase(card)
+    result["nbt_train"] = nbt_train_phase(card)
     result["slice"], net = slice_phase(card)
     result["nbt_slice"] = nbt_slice_phase(card)
     result["records"] = record_phase()
@@ -4726,6 +5042,7 @@ def main() -> int:
     })
     rows.extend(train_epilogue_rows(result["train_epilogue"]))
     rows.extend(nbt_kernel_rows(result["nbt"], result["nbt_slice"]))
+    rows.extend(nbt_train_rows(result["nbt_train"]))
     k["timings"] = {f"{n} {boards} B={B}": v
                     for (n, boards, B), v in k["timings"].items()}
     out_dir = ROOT / "chiprun_out"

@@ -60,12 +60,11 @@
 #include <climits>
 
 #include "lanes.cuh"
+#include "train_sums.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;   // the most threads of a pass's block
-constexpr int kFinishX = 32;    // a finishing block: 32 channels ...
-constexpr int kFinishY = 8;     // ... x 8 rows of partials
 
 // torch's ReLU backward passes the gradient unless the output is <= 0
 __device__ __forceinline__ bool passes(float out) { return !(out <= 0.0f); }
@@ -77,29 +76,6 @@ __device__ __forceinline__ float unbiased(T v, float cb) {
   float f = to_f(v);
   if constexpr (kBias) f = to_f(from_f<T>(__fadd_rn(f, cb)));
   return f;
-}
-
-// Writes a block's sums over its rows of K per-lane accumulators, in row
-// order, to partials[blockIdx.x][k][c].
-template <int K, int L>
-__device__ __forceinline__ void block_partials(float (&red)[K][kThreads * L],
-                                               const float (&acc)[K][L],
-                                               float* __restrict__ partials,
-                                               int C) {
-  const int at = threadIdx.y * C + threadIdx.x * L;
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-#pragma unroll
-    for (int j = 0; j < L; ++j) red[k][at + j] = acc[k][j];
-  __syncthreads();
-  const int nt = blockDim.x * blockDim.y;
-  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < K * C; i += nt) {
-    const int k = i / C, c = i - k * C;
-    float a = 0.0f;
-    for (int r = 0; r < static_cast<int>(blockDim.y); ++r)
-      a += red[k][r * C + c];
-    partials[(static_cast<long long>(blockIdx.x) * K + k) * C + c] = a;
-  }
 }
 
 // ------------------------------------------------------------ statistics
@@ -145,40 +121,6 @@ __global__ void __launch_bounds__(kThreads)
     if (has_q) moments<T, kBias>(v1, cb, acc);
   }
   block_partials<2, L>(red, acc, partials, C);
-}
-
-// Sums K partials [G][K][C] of channel c over the G blocks in double, in a
-// fixed order: thread (x, y) sums blocks y, y + 8, ... and row 0 sums the 8
-// rows.  True on the threads that hold a channel's sums.
-template <int K>
-__device__ __forceinline__ bool finish_sums(const float* __restrict__ partials,
-                                            int G, int C, double (&out)[K],
-                                            int& c) {
-  __shared__ double red[K][kFinishY][kFinishX];
-  c = blockIdx.x * kFinishX + threadIdx.x;
-  double a[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) a[k] = 0.0;
-  if (c < C)
-    for (int g = threadIdx.y; g < G; g += kFinishY)
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-        a[k] += partials[(static_cast<long long>(g) * K + k) * C + c];
-#pragma unroll
-  for (int k = 0; k < K; ++k) red[k][threadIdx.y][threadIdx.x] = a[k];
-  __syncthreads();
-  if (threadIdx.y != 0 || c >= C) return false;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    double t = 0.0;
-    for (int r = 0; r < kFinishY; ++r) t += red[k][r][threadIdx.x];
-    out[k] = t;
-  }
-  return true;
-}
-
-__device__ __forceinline__ double rstd_of(float var, double eps) {
-  return 1.0 / sqrt(static_cast<double>(var) + eps);
 }
 
 __global__ void __launch_bounds__(kFinishX* kFinishY)
@@ -276,23 +218,6 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   block_partials<2, L>(red, acc, partials, C);
-}
-
-__global__ void __launch_bounds__(kFinishX* kFinishY)
-    grad_finish(const float* __restrict__ partials, int G, int C, double n,
-                double eps, const float* __restrict__ var,
-                const float* __restrict__ mul, const float* __restrict__ gate,
-                float* __restrict__ dweight, float* __restrict__ dbias,
-                float* __restrict__ coef1, float* __restrict__ coef2) {
-  double s[2];
-  int c;
-  if (!finish_sums<2>(partials, G, C, s, c)) return;
-  const double rstd = rstd_of(var[c], eps);
-  const double k = mul[c];
-  dbias[c] = static_cast<float>(s[0]);
-  dweight[c] = static_cast<float>(s[1] * rstd);
-  coef1[c] = static_cast<float>(-k * s[0] / n);
-  coef2[c] = static_cast<float>(-k * gate[c] * s[1] * rstd * rstd / n);
 }
 
 template <typename T, bool kBias, bool kSkip>
@@ -404,8 +329,6 @@ int blocks(long long pixels, int rows, int wave, int capacity) {
   const int grid = grid_of(pixels, rows, wave);
   return grid < capacity ? grid : capacity;
 }
-
-int finish_grid(int C) { return (C + kFinishX - 1) / kFinishX; }
 
 struct StatsArgs {
   const void *v, *conv_bias;

@@ -36,19 +36,38 @@ affine, as KataGo's exported nets reduce theirs to a scale and a bias.
 
 The training forward (`net(x, train=True)`, the learner's).  Every norm
 normalises by the batch's mean and biased variance over (B, N, N) in fp32
-(`BatchNorm.batch_norm`) and then moves its running statistics once, after
-the forward, by the port's momentum rule (`NbtConfig.bn_momentum`, as
-`ModelConfig`'s); the activation is torch's own (`F.mish` or `F.relu`);
-the board's pooling takes torch's mean and max; the convolutions run
-NHWC (`torch.channels_last`) in the compute dtype from fp32 master
-weights cast per call; pooling and dense layers stay fp32.  The backward
-is autograd's through these torch ops.  `NbtConfig(remat=True)`
-recomputes each nested block in the backward pass
-(`torch.utils.checkpoint`); a recomputed block computes its statistics
-again and writes nothing.  While tracing is on, `net.train_normacts`
-counts each norm-and-activation call of a training forward (118 a forward
-at `b18c384nbt`'s layout, and 114 more for remat's recompute) and
-`net.train_gpools` each pooling (8, and 6 more).
+(flax's E[f^2] - E[f]^2, clamped at 0) and then moves its running
+statistics once, after the forward, by the port's momentum rule
+(`NbtConfig.bn_momentum`, as `ModelConfig`'s); the convolutions run NHWC
+(`torch.channels_last`) in the compute dtype from fp32 master weights cast
+per call; pooling and dense layers stay fp32.  It runs the serving path's
+skeleton (`fused`: each convolution followed by one epilogue, the
+residual add and the pooled row bias before the next norm, the pooling
+after it) with the training epilogues (`_Training`), except that each
+nested block computes its own first norm and ends on torch's residual add,
+so that `NbtConfig(remat=True)` recomputes each block in the backward
+pass (`torch.utils.checkpoint`) without a segment reaching into the next.
+The norm layers take, by the input's device (`takes_train_kernels`):
+  - on a CUDA input, the learner's kernels (`epilogue.nbt_train_normact` /
+    `nbt_train_pool`, one autograd function over
+    `csrc/nbt_train_epilogue.cu` and the serving kernels): the statistics
+    summed in a fixed order (two calls, and so a recomputed block, give
+    the same bits), the serving apply pass with them (mish in KataGo's
+    form), a backward of two passes that recomputes the pre-activation;
+    no fp32 activation is saved or written.  A layer the kernels do not
+    take (`epilogue.nbt_train_fits`: its channels a multiple of 16 bytes'
+    lanes, at most 256 vectors, a pool within the pool kernel's limits)
+    is refused with a ValueError;
+  - on a CPU input, torch's ops: `BatchNorm.batch_norm`, torch's `F.mish`
+    or `F.relu`, the residual add and the row bias as torch ops, the
+    pooling by torch's mean and max, and autograd's backward through
+    them.  A net's `train_kernels = False` keeps these on the card too,
+    as the comparison for the kernels.
+While tracing is on, `net.train_normacts` counts each norm-and-activation
+call of a training forward (118 a forward at `b18c384nbt`'s layout, and
+114 more for remat's recompute), `net.train_normact_kernels` those the
+kernels served, `net.train_normact_grads` the kernels' backward calls (118
+a step) and `net.train_gpools` each pooling (8, and 6 more).
 
 The serving path (`NestedBottleneckNet.serve`).  A serving copy
 (`resnet.prepare_serving`) whose channels are multiples of 8 holds each
@@ -79,6 +98,7 @@ from torch.utils.checkpoint import checkpoint
 
 from elf_tpu_torch import profiling
 from elf_tpu_torch.device import DeviceLike, resolve_device
+from elf_tpu_torch.models import epilogue
 from elf_tpu_torch.models.epilogue import (activation, board_pool, normact,
                                            pool, pool_scales)
 from elf_tpu_torch.models.resnet import (BatchNorm, Conv, ModelConfig,
@@ -120,25 +140,11 @@ class NbtConfig:
         return torch.bfloat16 if self.use_bf16 else torch.float32
 
 
-def _k(norm: BatchNorm) -> tuple:
-    """A serving copy's epilogue constants of `norm`: mean, mul, bias."""
-    return norm.running_mean, norm.serving_mul, norm.bias
-
-
 def _train_act(name: str):
-    """The training forward's activation: torch's own, whose backward is
-    autograd's."""
+    """The training forward's activation in torch: torch's own, whose
+    backward is autograd's."""
     activation(name)                # refuses an unknown name
     return F.relu if name == "relu" else F.mish
-
-
-def _normact(norm: BatchNorm, h: torch.Tensor, act, stats: list):
-    """act(norm(h)) in fp32 with the batch statistics, appended to `stats`
-    as (mean, var)."""
-    profiling.count("net.train_normacts")
-    y, mean, var = norm.batch_norm(h)
-    stats += [mean, var]
-    return act(y)
 
 
 def _conv(conv: Conv, h: torch.Tensor) -> torch.Tensor:
@@ -150,13 +156,76 @@ def _conv(conv: Conv, h: torch.Tensor) -> torch.Tensor:
 
 
 def _pool(g: torch.Tensor, kind: str) -> torch.Tensor:
-    """`board_pool(g, kind)` of a training forward, by torch's mean and
-    max."""
-    profiling.count("net.train_gpools")
+    """`board_pool(g, kind)` of a training forward in torch, by torch's
+    mean and max."""
     _, k1, k2 = pool_scales(g.shape[2] * g.shape[3])
     mean = g.mean(dim=(2, 3))
     third = g.amax(dim=(2, 3)) if kind == "gpool" else mean * k2
     return torch.cat([mean, mean * k1, third], 1)
+
+
+class _Serving:
+    """The epilogues of a serving copy's forward: each norm's running
+    statistics (`serving_mul`), one epilogue a convolution."""
+
+    def __init__(self, act: str):
+        self.act, self.dense_act = act, activation(act)
+
+    @staticmethod
+    def conv(conv: Conv, h: torch.Tensor) -> torch.Tensor:
+        return conv(h)
+
+    def normact(self, v, norm: BatchNorm, skip=None, rowbias=None):
+        """act(norm(skip + v (+ rowbias))), with the skip (s, y)."""
+        return normact(v, norm.running_mean, norm.serving_mul, norm.bias,
+                       self.act, skip=skip, rowbias=rowbias)
+
+    def pool(self, v, norm: BatchNorm, kind: str) -> torch.Tensor:
+        """board_pool(act(norm(v)), kind)."""
+        return pool(v, norm.running_mean, norm.serving_mul, norm.bias,
+                    self.act, kind)
+
+
+class _Training:
+    """The epilogues of a training forward: each norm with the batch
+    statistics, appended to `stats` as (mean, var); with `kernels` the
+    learner's kernels (`epilogue.nbt_train_normact`, `nbt_train_pool`,
+    which refuse a layer outside `nbt_train_fits`), else torch's ops."""
+
+    conv = staticmethod(_conv)
+
+    def __init__(self, act: str, kernels: bool):
+        self.act, self.dense_act = act, _train_act(act)
+        self.kernels = kernels
+        self.stats: list = []
+
+    def normact(self, v, norm: BatchNorm, skip=None, rowbias=None):
+        profiling.count("net.train_normacts")
+        if self.kernels:
+            *out, mean, var = epilogue.nbt_train_normact(
+                v, norm.weight, norm.bias, self.act, skip, rowbias)
+        else:
+            s = v if skip is None else skip + v
+            f = s.float()
+            y, mean, var = norm.batch_norm(
+                f if rowbias is None else f + rowbias[:, :, None, None])
+            y = self.dense_act(y).to(v.dtype,
+                                     memory_format=torch.channels_last)
+            out = [y] if skip is None else [s, y]
+        self.stats += [mean, var]
+        return out[0] if skip is None else tuple(out)
+
+    def pool(self, v, norm: BatchNorm, kind: str) -> torch.Tensor:
+        profiling.count("net.train_normacts")
+        profiling.count("net.train_gpools")
+        if self.kernels:
+            g, mean, var = epilogue.nbt_train_pool(v, norm.weight, norm.bias,
+                                                   self.act, kind)
+        else:
+            y, mean, var = norm.batch_norm(v)
+            g = _pool(self.dense_act(y), kind)
+        self.stats += [mean, var]
+        return g
 
 
 class NormActConv(nn.Module):
@@ -169,9 +238,6 @@ class NormActConv(nn.Module):
 
     def forward(self, h: torch.Tensor, act) -> torch.Tensor:
         return self.conv(act(self.norm(h)).to(self.conv.dtype))
-
-    def train_forward(self, h: torch.Tensor, act, stats: list):
-        return _conv(self.conv, _normact(self.norm, h, act, stats))
 
 
 class ResBlock(nn.Module):
@@ -189,15 +255,12 @@ class ResBlock(nn.Module):
     def forward(self, r: torch.Tensor, act) -> torch.Tensor:
         return r + self.normactconv2(self.normactconv1(r, act), act)
 
-    def train_forward(self, r: torch.Tensor, act, stats: list):
-        u = self.normactconv1.train_forward(r, act, stats)
-        return r + self.normactconv2.train_forward(u, act, stats)
-
-    def serve(self, r, a, after: BatchNorm, act: str):
-        """(r, act(after(r))) of the block, from a = act(first_norm(r))."""
-        u = normact(self.normactconv1.conv(a), *_k(self.normactconv2.norm),
-                    act)
-        return normact(self.normactconv2.conv(u), *_k(after), act, skip=r)
+    def fused(self, r, a, after: BatchNorm, ep):
+        """(r, act(after(r))) of the block, from a = act(first_norm(r)),
+        each convolution followed by one epilogue of `ep`."""
+        u = ep.normact(ep.conv(self.normactconv1.conv, a),
+                       self.normactconv2.norm)
+        return ep.normact(ep.conv(self.normactconv2.conv, u), after, skip=r)
 
 
 class GPoolResBlock(nn.Module):
@@ -224,19 +287,11 @@ class GPoolResBlock(nn.Module):
         t = self.conv1r(a).float() + self.linear_g(g)[:, :, None, None]
         return r + self.conv2(act(self.norm2(t)).to(dt))
 
-    def train_forward(self, r: torch.Tensor, act, stats: list):
-        a = _normact(self.norm1, r, act, stats).to(
-            self.conv2.dtype, memory_format=torch.channels_last)
-        g = _pool(_normact(self.normg, _conv(self.conv1g, a), act, stats),
-                  "gpool")
-        t = _conv(self.conv1r, a).float() + self.linear_g(g)[:, :, None, None]
-        return r + _conv(self.conv2, _normact(self.norm2, t, act, stats))
-
-    def serve(self, r, a, after: BatchNorm, act: str):
-        g = pool(self.conv1g(a), *_k(self.normg), act, "gpool")
-        u = normact(self.conv1r(a), *_k(self.norm2), act,
-                    rowbias=self.linear_g(g))
-        return normact(self.conv2(u), *_k(after), act, skip=r)
+    def fused(self, r, a, after: BatchNorm, ep):
+        g = ep.pool(ep.conv(self.conv1g, a), self.normg, "gpool")
+        u = ep.normact(ep.conv(self.conv1r, a), self.norm2,
+                       rowbias=self.linear_g(g))
+        return ep.normact(ep.conv(self.conv2, u), after, skip=r)
 
 
 class NestedBlock(nn.Module):
@@ -258,24 +313,28 @@ class NestedBlock(nn.Module):
             r = blk(r, act)
         return x + self.normactconvq(r, act)
 
-    def train_forward(self, x: torch.Tensor, act):
+    def train_forward(self, x: torch.Tensor, act: str, kernels: bool):
         """(output, the batch statistics of the block's norms in order),
-        which the caller writes."""
-        stats: list = []
-        r = self.normactconvp.train_forward(x, act, stats)
-        for blk in self.blockstack:
-            r = blk.train_forward(r, act, stats)
-        return x + self.normactconvq.train_forward(r, act, stats), tuple(stats)
+        which the caller writes; the output's residual add is torch's, so
+        that a remat segment ends on it."""
+        ep = _Training(act, kernels)
+        a = self._inner(ep.normact(x, self.normactconvp.norm), ep)
+        return x + _conv(self.normactconvq.conv, a), tuple(ep.stats)
 
-    def serve(self, x, a, after: BatchNorm, act: str):
+    def fused(self, x, a, after: BatchNorm, ep):
         """(x, act(after(x))) of the block, from a = act(norm_p(x))."""
-        r = self.normactconvp.conv(a)
+        a = self._inner(a, ep)
+        return ep.normact(ep.conv(self.normactconvq.conv, a), after, skip=x)
+
+    def _inner(self, a, ep):
+        """act(norm_q(r)) of the inner stream r, from a = act(norm_p(x))."""
+        r = ep.conv(self.normactconvp.conv, a)
         stack = list(self.blockstack)
-        a = normact(r, *_k(stack[0].first_norm), act)
+        a = ep.normact(r, stack[0].first_norm)
         nexts = [blk.first_norm for blk in stack[1:]]
         for blk, nxt in zip(stack, nexts + [self.normactconvq.norm]):
-            r, a = blk.serve(r, a, nxt, act)
-        return normact(self.normactconvq.conv(a), *_k(after), act, skip=x)
+            r, a = blk.fused(r, a, nxt, ep)
+        return a
 
 
 class PolicyHead(nn.Module):
@@ -296,16 +355,10 @@ class PolicyHead(nn.Module):
         p = self.conv1p(h).float() + self.linear_g(g)[:, :, None, None]
         return self._log_pi(act(self.norm2(p)).to(h.dtype), g)
 
-    def train_forward(self, h: torch.Tensor, act, stats: list):
-        g = _pool(_normact(self.normg, _conv(self.conv1g, h), act, stats),
-                  "gpool")
-        p = _conv(self.conv1p, h).float() + self.linear_g(g)[:, :, None, None]
-        return self._log_pi(_normact(self.norm2, p, act, stats).to(h.dtype), g)
-
-    def serve(self, h: torch.Tensor, act: str) -> torch.Tensor:
-        g = pool(self.conv1g(h), *_k(self.normg), act, "gpool")
-        p = normact(self.conv1p(h), *_k(self.norm2), act,
-                    rowbias=self.linear_g(g))
+    def fused(self, h: torch.Tensor, ep) -> torch.Tensor:
+        g = ep.pool(ep.conv(self.conv1g, h), self.normg, "gpool")
+        p = ep.normact(ep.conv(self.conv1p, h), self.norm2,
+                       rowbias=self.linear_g(g))
         return self._log_pi(p, g)
 
     def _log_pi(self, p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -327,14 +380,9 @@ class ValueHead(nn.Module):
         v = board_pool(act(self.norm1(self.conv1(h))), "value")
         return self._value(v, act)
 
-    def train_forward(self, h: torch.Tensor, act, stats: list):
-        v = _pool(_normact(self.norm1, _conv(self.conv1, h), act, stats),
-                  "value")
-        return self._value(v, act)
-
-    def serve(self, h: torch.Tensor, act: str) -> torch.Tensor:
-        v = pool(self.conv1(h), *_k(self.norm1), act, "value")
-        return self._value(v, activation(act))
+    def fused(self, h: torch.Tensor, ep) -> torch.Tensor:
+        v = ep.pool(ep.conv(self.conv1, h), self.norm1, "value")
+        return self._value(v, ep.dense_act)
 
     def _value(self, v: torch.Tensor, act) -> torch.Tensor:
         p = torch.softmax(self.linear3(act(self.linear2(v))), -1)
@@ -356,6 +404,9 @@ class NestedBottleneckNet(ServingNet):
         self.value_head = ValueHead(cfg)
         for norm in self.serving_norms():
             norm.momentum = cfg.torch_bn_momentum
+        # off: a training forward on the card runs torch's ops, the
+        # kernels' comparison (`takes_train_kernels`)
+        self.train_kernels = True
 
     def forward(self, x: torch.Tensor,
                 train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -374,27 +425,32 @@ class NestedBottleneckNet(ServingNet):
         h = act(self.norm_trunkfinal(h)).to(dt)
         return self.policy_head(h, act), self.value_head(h, act)
 
+    def takes_train_kernels(self, x: torch.Tensor) -> bool:
+        """Whether a training forward on x runs its norms on the learner's
+        kernels: on a CUDA input, unless `train_kernels` is off."""
+        return x.device.type == "cuda" and self.train_kernels
+
     def train_forward(self, x: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The training forward (see the module): the batch statistics,
         which move the running ones once, after the forward; with
         `cfg.remat` each nested block is recomputed in the backward."""
-        act = _train_act(self.cfg.activation)
-        stats: list = []
+        act = self.cfg.activation
+        kernels = self.takes_train_kernels(x)
+        ep = _Training(act, kernels)
         h = _conv(self.conv_spatial, x.permute(0, 3, 1, 2))
         for blk in self.blocks:
             if self.cfg.remat:
-                h, bs = checkpoint(blk.train_forward, h, act,
+                h, bs = checkpoint(blk.train_forward, h, act, kernels,
                                    use_reentrant=False)
             else:
-                h, bs = blk.train_forward(h, act)
-            stats += bs
-        h = _normact(self.norm_trunkfinal, h, act, stats).to(
-            self.cfg.compute_dtype, memory_format=torch.channels_last)
-        log_pi = self.policy_head.train_forward(h, act, stats)
-        value = self.value_head.train_forward(h, act, stats)
-        for norm, mean, var in zip(self.serving_norms(), stats[0::2],
-                                   stats[1::2], strict=True):
+                h, bs = blk.train_forward(h, act, kernels)
+            ep.stats += bs
+        h = ep.normact(h, self.norm_trunkfinal)
+        log_pi = self.policy_head.fused(h, ep)
+        value = self.value_head.fused(h, ep)
+        for norm, mean, var in zip(self.serving_norms(), ep.stats[0::2],
+                                   ep.stats[1::2], strict=True):
             norm.update_running(mean, var)
         return log_pi, value
 
@@ -403,15 +459,15 @@ class NestedBottleneckNet(ServingNet):
         followed by one epilogue; on a CPU input the epilogues are the
         plain versions."""
         profiling.count("net.forwards")
-        act = self.cfg.activation
+        ep = _Serving(self.cfg.activation)
         h = x.permute(0, 3, 1, 2).to(self.cfg.compute_dtype,
                                       memory_format=torch.channels_last)
         trunk = self.conv_spatial(h)
-        a = normact(trunk, *_k(self.blocks[0].normactconvp.norm), act)
+        a = ep.normact(trunk, self.blocks[0].normactconvp.norm)
         afters = [blk.normactconvp.norm for blk in self.blocks[1:]]
         for blk, after in zip(self.blocks, afters + [self.norm_trunkfinal]):
-            trunk, a = blk.serve(trunk, a, after, act)
-        return self.policy_head.serve(a, act), self.value_head.serve(a, act)
+            trunk, a = blk.fused(trunk, a, after, ep)
+        return self.policy_head.fused(a, ep), self.value_head.fused(a, ep)
 
     def serving_norms(self) -> list:
         """Every norm: `serve` hands each to an epilogue."""

@@ -459,7 +459,8 @@ def test_nbt_train_step_on_card_close_to_the_fp32_reference(dev):
     measures (`perfbench/limits/go19_b18c384nbt_learner.
     train_family_b2048.json`: each leaf's gradient norm against the larger
     of its own and the median leaf's, and the norm over all leaves); the
-    step counts 232 norm-and-activation calls and 14 poolings."""
+    step counts 232 norm-and-activation calls, all on the learner's
+    kernels, 118 backward calls and 14 poolings."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -515,7 +516,9 @@ def test_nbt_train_step_on_card_close_to_the_fp32_reference(dev):
     torch.cuda.synchronize(dev)
     c = profiling.counters()
     profiling.reset()
-    assert c == {"net.train_normacts": 232, "net.train_gpools": 14}
+    assert c == {"net.train_normacts": 232, "net.train_gpools": 14,
+                 "net.train_normact_kernels": 232,
+                 "net.train_normact_grads": 118}
     assert torch.isfinite(stats["loss/total"]) and state.step == 1
 
 

@@ -279,8 +279,9 @@ def test_state_dict_names_are_the_published_ones():
 def test_an_edited_header_changes_the_build_hash(tmp_path):
     """A library's build is named by its source, the headers beside it and
     the flags: editing the shared header rebuilds every library."""
-    for name in ("net_epilogue.cu", "lanes.cuh"):
-        shutil.copy(_build.CSRC / name, tmp_path / name)
+    headers = [*_build.CSRC.glob("*.cuh"), *_build.CSRC.glob("*.h")]
+    for path in [_build.CSRC / "net_epilogue.cu", *headers]:
+        shutil.copy(path, tmp_path / path.name)
     src, flags = tmp_path / "net_epilogue.cu", _build.NVCC_FLAGS
     before = _build.source_hash(src, flags)
     assert before == _build.source_hash(_build.CSRC / "net_epilogue.cu",
